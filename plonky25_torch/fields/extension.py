@@ -1,0 +1,184 @@
+"""GF(p^2) = GF(p)[X]/(X^2 - 7) arithmetic over GL limb tensors.
+
+Mirrors plonky25_tpu/fields/extension.py and the reference's quadratic
+extension algebra (src/p3/extension.rs): W = 7, dth_root = p - 1, and the
+degree-2 mul/inverse formulas (extension.rs:304-321, 458-471).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import goldilocks as gl
+from .goldilocks import GL
+
+
+class GL2(NamedTuple):
+    """A GF(p^2) array: two equally shaped GL arrays (c0, c1)."""
+
+    c0: GL
+    c1: GL
+
+    @property
+    def shape(self):
+        return self.c0.shape
+
+    def __getitem__(self, idx):
+        return GL2(self.c0[idx], self.c1[idx])
+
+    def reshape(self, *shape):
+        return GL2(self.c0.reshape(*shape), self.c1.reshape(*shape))
+
+
+def zeros(shape, device) -> GL2:
+    return GL2(gl.zeros(shape, device), gl.zeros(shape, device))
+
+
+def ones(shape, device) -> GL2:
+    return GL2(gl.ones(shape, device), gl.zeros(shape, device))
+
+
+def from_base(x: GL) -> GL2:
+    """Embed the base field into c0 (p3_field_to_arr, p3/mod.rs:143-147)."""
+    return GL2(x, GL(torch.zeros_like(x.lo), torch.zeros_like(x.hi)))
+
+
+def from_u64_pair(c0, c1, device) -> GL2:
+    return GL2(gl.from_u64(c0, device), gl.from_u64(c1, device))
+
+
+def to_u64_pair(x: GL2):
+    return gl.to_u64(x.c0), gl.to_u64(x.c1)
+
+
+def add(x: GL2, y: GL2) -> GL2:
+    return GL2(gl.add(x.c0, y.c0), gl.add(x.c1, y.c1))
+
+
+def sub(x: GL2, y: GL2) -> GL2:
+    return GL2(gl.sub(x.c0, y.c0), gl.sub(x.c1, y.c1))
+
+
+def neg(x: GL2) -> GL2:
+    return GL2(gl.neg(x.c0), gl.neg(x.c1))
+
+
+def add_base(x: GL2, b: GL) -> GL2:
+    """x + b, b in the base field (p3_ext_add_single, extension.rs:393-401)."""
+    return GL2(gl.add(x.c0, b), x.c1)
+
+
+def sub_base(x: GL2, b: GL) -> GL2:
+    return GL2(gl.sub(x.c0, b), x.c1)
+
+
+def mul_base(x: GL2, b: GL) -> GL2:
+    return GL2(gl.mul(x.c0, b), gl.mul(x.c1, b))
+
+
+def _mul_w(x: GL) -> GL:
+    """x * 7 via adds (cheaper than a field mul)."""
+    x2 = gl.add(x, x)
+    x4 = gl.add(x2, x2)
+    return gl.add(gl.add(x4, x2), x)
+
+
+def mul(x: GL2, y: GL2) -> GL2:
+    """(a0 + a1 X)(b0 + b1 X) = (a0 b0 + 7 a1 b1) + (a0 b1 + a1 b0) X."""
+    a0b0 = gl.mul(x.c0, y.c0)
+    a1b1 = gl.mul(x.c1, y.c1)
+    a0b1 = gl.mul(x.c0, y.c1)
+    a1b0 = gl.mul(x.c1, y.c0)
+    return GL2(gl.add(a0b0, _mul_w(a1b1)), gl.add(a0b1, a1b0))
+
+
+def square(x: GL2) -> GL2:
+    return mul(x, x)
+
+
+def inv(x: GL2) -> GL2:
+    """1/x = conj(x) / norm(x), norm = c0^2 - 7 c1^2 (extension.rs:304-321)."""
+    n = gl.sub(gl.square(x.c0), _mul_w(gl.square(x.c1)))
+    scalar = gl.inv(n)
+    return GL2(gl.mul(x.c0, scalar), gl.mul(gl.neg(x.c1), scalar))
+
+
+def exp_power_of_2(x: GL2, power_log: int) -> GL2:
+    """x^(2^power_log)."""
+    for _ in range(power_log):
+        x = square(x)
+    return x
+
+
+def select(mask, x: GL2, y: GL2) -> GL2:
+    """p3_ext_if (extension.rs:185-196)."""
+    return GL2(gl.select(mask, x.c0, y.c0), gl.select(mask, x.c1, y.c1))
+
+
+def eq(x: GL2, y: GL2) -> torch.Tensor:
+    return gl.eq(x.c0, y.c0) & gl.eq(x.c1, y.c1)
+
+
+def monomial(exponent: int, shape, device) -> GL2:
+    """1 or X (extension.rs:558-562)."""
+    if exponent == 0:
+        return ones(shape, device)
+    if exponent == 1:
+        return GL2(gl.zeros(shape, device), gl.ones(shape, device))
+    raise ValueError("EXT_DEGREE == 2 supports monomials 0 and 1 only")
+
+
+def broadcast_to(x: GL2, shape) -> GL2:
+    return GL2(gl.broadcast_to(x.c0, shape), gl.broadcast_to(x.c1, shape))
+
+
+def stack(elems, dim=0) -> GL2:
+    return GL2(gl.stack([e.c0 for e in elems], dim),
+               gl.stack([e.c1 for e in elems], dim))
+
+
+class Ops:
+    """GF(p^2) ops for the AIR folder (air.VerifierConstraintFolder).
+
+    `shape` is the evaluation-point shape: the proof axis (B,) in the
+    verifier, which folds every proof of a batch at its own zeta.  Each
+    constraint has exactly that shape; the vector constraints of wide AIRs
+    (leading constraint axes) come with those AIRs in a later slice."""
+
+    def __init__(self, shape, device):
+        self._shape = tuple(shape)
+        self._device = device
+
+    def add(self, x, y):
+        return add(x, y)
+
+    def sub(self, x, y):
+        return sub(x, y)
+
+    def mul(self, x, y):
+        return mul(x, y)
+
+    def zero(self):
+        return zeros(self._shape, self._device)
+
+    def one(self):
+        return ones(self._shape, self._device)
+
+    def from_base(self, b):
+        if isinstance(b, GL):
+            return from_base(b)
+        return GL2(gl.full(self._shape, int(b), self._device),
+                   gl.zeros(self._shape, self._device))
+
+    def fold_constraints(self, alpha: GL2, constraints) -> GL2:
+        """acc = acc*alpha + c_i in recording order (air.rs:63-69)."""
+        acc = self.zero()
+        for c in constraints:
+            if c.shape != self._shape:
+                raise ValueError(
+                    f"constraint of shape {c.shape} at evaluation points of "
+                    f"shape {self._shape}: vector constraints are not ported")
+            acc = add(mul(acc, alpha), c)
+        return acc

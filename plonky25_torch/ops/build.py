@@ -1,0 +1,75 @@
+"""Build the port's CUDA sources into shared libraries, at first use.
+
+Each `csrc/<name>.cu` compiles with nvcc for sm_90a into
+`build/<name>-<hash>.so` at the root of the checkout, with a plain C
+interface that ctypes loads.  The hash covers the sources and the flags, so
+an edit rebuilds and an unchanged tree reuses the library.  The compiler's
+report (registers, spills) is kept beside the library as `.log`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import subprocess
+import time
+from dataclasses import dataclass
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclass
+class Built:
+    """A loaded library and how it was obtained."""
+
+    lib: ctypes.CDLL
+    path: str
+    log: str          # nvcc's output (ptxas register/spill report)
+    seconds: float    # compile time; 0.0 when an earlier build was reused
+
+
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME)")
+    path = os.path.join(CUDA_HOME, "bin", name)
+    if not os.path.exists(path):
+        raise RuntimeError(f"{path} does not exist")
+    return path
+
+
+def build(name: str) -> Built:
+    """Compile csrc/<name>.cu (unless built already) and load it."""
+    src = os.path.join(CSRC_DIR, name + ".cu")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    so = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    log_path = so[:-len(".so")] + ".log"
+    seconds = 0.0
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run([cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+        with open(log_path, "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, so)   # atomic: a concurrent loader sees all or nothing
+    log = ""
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            log = f.read()
+    return Built(ctypes.CDLL(so), so, log, seconds)

@@ -1,0 +1,163 @@
+"""Poseidon2 width-12 permutation over Goldilocks.
+
+`poseidon2_permute(state)` is what every caller uses.  It picks by the
+tensor's device alone:
+
+  * a CPU tensor runs `poseidon2_permute_plain`, the PyTorch version below
+    (the CPU tests' path);
+  * a CUDA tensor launches the hand-written kernel csrc/poseidon2.cu, at
+    every batch size, or raises.  There is no size threshold, no fallback
+    and no switch around it.
+
+`poseidon2_permute.launches` counts the kernel's launches, so a run can show
+that its main path went through the kernel.
+
+The plain version mirrors plonky25_tpu/ops/poseidon2.py (rounds in array
+form over a (..., 12) state; the constants of poseidon2_goldilocks.rs:11-164);
+the kernel replaces the Pallas kernel of
+plonky25_tpu/ops/pallas/poseidon2_pallas.py:103.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..constants import (
+    GOLDILOCKS_P as P,
+    MAT_DIAG_M_1,
+    RC,
+    RC_MID,
+    ROUND_F_BEGIN,
+    ROUND_F_END,
+    WIDTH,
+)
+from ..fields import gl
+from ..fields.goldilocks import GL
+from . import build
+
+KERNEL_SOURCE = "plonky25_torch/csrc/poseidon2.cu"
+REPLACES = "plonky25_tpu/ops/pallas/poseidon2_pallas.py:103"
+
+# ------------------------------------------------------------ plain version
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_constants(device: torch.device):
+    """(rc_ext (8, 12), rc_mid (22,), diag (12,)) as GL on `device`."""
+    return (gl.from_u64(RC, device), gl.from_u64(RC_MID, device),
+            gl.from_u64([(d - 1) % P for d in MAT_DIAG_M_1], device))
+
+
+def _sbox(x: GL) -> GL:
+    """x^7 elementwise (poseidon2.rs:114-121)."""
+    x2 = gl.square(x)
+    x4 = gl.square(x2)
+    return gl.mul(gl.mul(x, x2), x4)
+
+
+def _matmul_external(state: GL) -> GL:
+    """M_E on (..., 12): M4 per 4-lane block, then the block sums
+    (poseidon2.rs:127-147)."""
+    batch = state.shape[:-1]
+    b = state.reshape(*batch, 3, 4)
+    x0, x1, x2, x3 = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    t0 = gl.add(x0, x1)
+    t1 = gl.add(x2, x3)
+    t2 = gl.add(t1, gl.double(x1))
+    t3 = gl.add(t0, gl.double(x3))
+    t4 = gl.add(t3, gl.scale_small(t1, 4))
+    t5 = gl.add(t2, gl.scale_small(t0, 4))
+    m4 = gl.stack([gl.add(t3, t5), t5, gl.add(t2, t4), t4], dim=-1)  # (...,3,4)
+    stored = gl.add(gl.add(m4[..., 0, :], m4[..., 1, :]), m4[..., 2, :])
+    return gl.add(m4, stored[..., None, :]).reshape(*batch, WIDTH)
+
+
+def _sum_lanes(state: GL) -> GL:
+    """Sum of the 12 lanes, (..., 12) -> (...,)."""
+    batch = state.shape[:-1]
+    b = state.reshape(*batch, 3, 4)
+    t = gl.add(gl.add(b[..., 0, :], b[..., 1, :]), b[..., 2, :])  # (..., 4)
+    return gl.add(gl.add(t[..., 0], t[..., 1]), gl.add(t[..., 2], t[..., 3]))
+
+
+def poseidon2_permute_plain(state: GL) -> GL:
+    """The permutation in PyTorch ops, on a GL of shape (..., 12)."""
+    if state.shape[-1] != WIDTH:
+        raise ValueError(f"state shape {state.shape}: last axis must be {WIDTH}")
+    rc_ext, rc_mid, diag = _plain_constants(state.device)
+    state = _matmul_external(state)
+    for r in range(ROUND_F_BEGIN):
+        state = _matmul_external(_sbox(gl.add(state, rc_ext[r])))
+    for r in range(len(RC_MID)):
+        lane0 = _sbox(gl.add(state[..., 0], rc_mid[r]))
+        state = gl.concatenate([lane0[..., None], state[..., 1:]], dim=-1)
+        state = gl.add(gl.mul(diag, state), _sum_lanes(state)[..., None])
+    for r in range(ROUND_F_BEGIN, ROUND_F_END):
+        state = _matmul_external(_sbox(gl.add(state, rc_ext[r])))
+    return state
+
+
+# ------------------------------------------------------------ the kernel
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_library() -> build.Built:
+    """Build (at first use) and load csrc/poseidon2.cu."""
+    built = build.build("poseidon2")
+    fn = built.lib.p25_poseidon2_permute_w12
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return built
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_constants():
+    """The kernel's Constants struct: RC (8x12), RC_MID (22), diag (12)."""
+    words = [v % P for row in RC for v in row]
+    words += [v % P for v in RC_MID]
+    words += [(d - 1) % P for d in MAT_DIAG_M_1]
+    return (ctypes.c_uint64 * len(words))(*words)
+
+
+def check_kernel_input(state: GL) -> None:
+    """Raise unless `state` is what the kernel takes: two contiguous int64
+    limb tensors of one shape (..., 12) on one CUDA device."""
+    lo, hi = state
+    if lo.dtype != torch.int64 or hi.dtype != torch.int64:
+        raise TypeError(f"limbs must be int64, got {lo.dtype} and {hi.dtype}")
+    if lo.shape != hi.shape or lo.dim() == 0 or lo.shape[-1] != WIDTH:
+        raise ValueError(f"limb shapes {tuple(lo.shape)} and {tuple(hi.shape)}"
+                         f": want two equal shapes (..., {WIDTH})")
+    if not (lo.is_contiguous() and hi.is_contiguous()):
+        raise ValueError("limb tensors must be contiguous")
+    if lo.device.type != "cuda" or hi.device != lo.device:
+        raise ValueError(f"the kernel takes CUDA tensors on one device, got "
+                         f"{lo.device} and {hi.device}")
+
+
+def poseidon2_permute(state: GL) -> GL:
+    """Permute a GL of shape (..., 12): the plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors (see the module docstring)."""
+    if state.lo.device.type == "cpu" and state.hi.device.type == "cpu":
+        return poseidon2_permute_plain(state)
+    check_kernel_input(state)
+    lo, hi = state
+    out_lo, out_hi = torch.empty_like(lo), torch.empty_like(hi)
+    n = lo.numel() // WIDTH
+    if n == 0:
+        return GL(out_lo, out_hi)
+    fn = kernel_library().lib.p25_poseidon2_permute_w12
+    with torch.cuda.device(lo.device):
+        stream = torch.cuda.current_stream(lo.device).cuda_stream
+        err = fn(lo.data_ptr(), hi.data_ptr(), out_lo.data_ptr(),
+                 out_hi.data_ptr(), n, _kernel_constants(), stream)
+    if err != 0:
+        raise RuntimeError(f"poseidon2 kernel launch failed: cudaError {err}")
+    poseidon2_permute.launches += 1
+    return GL(out_lo, out_hi)
+
+
+poseidon2_permute.launches = 0
