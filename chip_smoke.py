@@ -3,19 +3,42 @@
     python3 chip_smoke.py [--report PATH]
 
 Phases, one line each; any failure exits non-zero:
-  1. the card's name and power limit (nvidia-smi);
-  2. build csrc/poseidon2.cu for sm_90a from this checkout's sources;
-  3. the Poseidon2 kernel against its plain PyTorch version, bit for bit:
-     N = 1, 255, 257 and 1,048,579 random states, edge-value states, the
-     fixture's known answers, and every state count the main path launches;
-  4. `verify_proof` of the fixture proof (tests/fixtures/) on the card: the
-     transcript values of tests/fixtures/proof_fibonacci_expected.json, the
-     tamper battery, the kernel's launch count, the latency;
-  5. `BatchVerifier` at B=2048 proofs x Q=100 queries (the fixture tiled,
-     4 lanes tampered): exact verdicts, ms per batch, queries/s, peak
-     memory, ms per stage (CUDA events), device time (torch.profiler);
-  6. the kernel table line {"kernels": [...]}, then the last line
-     {"ok": true, "device": {...}}.
+  [card]        the card's name and power limit (nvidia-smi);
+  [build]       both kernels, csrc/poseidon2.cu (state-major) and
+                csrc/poseidon2_soa.cu (lane-major), built for sm_90a from
+                this checkout's sources, one nvcc each, started together;
+                registers, spills and SASS instruction mix of each;
+  [kernel]      the state-major kernel against its plain PyTorch version,
+                bit for bit: N = 1, 255, 257, 1,048,579, edge-value states,
+                the fixture's known answers, every state count it launches;
+  [single]      `verify_proof` of the fixture proof: the transcript values
+                of tests/fixtures/proof_fibonacci_expected.json, the tamper
+                battery, the launch count, the latency;
+  [batch]       `BatchVerifier` at B=2048 proofs x Q=100 queries: exact
+                verdicts, ms per batch, queries/s, peak memory, ms per stage
+                (CUDA events), device time (torch.profiler);
+  [kernel-soa]  the lane-major kernel against its plain version and the
+                state-major kernel, at the same sizes and at every state
+                count the prover paths launch;
+  [prove-64]    `prove` of fib(64) at FriConfig(1, 100, 16): byte-equal to
+                tests/fixtures/proof_fibonacci_refimpl.json, launch counts;
+  [prove-8192]  fib(2^13), whose LDE crosses the JAX package's six-step
+                threshold: digest and transcript values equal to
+                tests/fixtures/proof_fibonacci8192_expected.json;
+  [prove]       fib(2^20) at FriConfig(1, 100, 16): accepted by the port's
+                `verify_proof`, a flipped Merkle sibling rejected; first and
+                steady latency, ms per stage, launches, device time and busy
+                share, peak memory;
+  [batch-prove] `BatchProver` on B=256 copies of fib(64), one lane's trace
+                tampered: valid lanes byte-equal to the fixture, the tampered
+                lane rejected by its quotient check; proofs/s, peak memory,
+                launches per batch;
+  [timing]      each kernel at each path's state counts against its bound
+                and its plain version, and both kernels at 2^21 states;
+then the kernel table line {"kernels": [...]} and the last line
+{"ok": true, "device": {...}}.  Every path is driven with the launch
+counts set to 0 just before it and read just after, and the counts are held
+to the numbers the path's shape gives.
 
 With --report, the full measurements also go to PATH as JSON.  The script
 imports nothing of JAX or plonky25_tpu; it needs the repository beside it.
@@ -25,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import hashlib
 import json
 import os
 import re
@@ -40,15 +64,25 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from plonky25_torch.challenger import SymbolicChallenger  # noqa: E402
+from plonky25_torch.constants import RATE  # noqa: E402
 from plonky25_torch.fields import gl  # noqa: E402
 from plonky25_torch.models import FibonacciAir  # noqa: E402
+from plonky25_torch.models.fibonacci import fibonacci_trace  # noqa: E402
 from plonky25_torch.ops import build  # noqa: E402
 from plonky25_torch.ops import poseidon2 as p2  # noqa: E402
 from plonky25_torch.parallel.batch import (  # noqa: E402
     BatchVerifier,
     stack_witnesses,
 )
-from plonky25_torch.proof import FriConfig, derive_config, load_proof  # noqa: E402
+from plonky25_torch.proof import (  # noqa: E402
+    FriConfig,
+    derive_config,
+    load_proof,
+    proof_to_json,
+)
+from plonky25_torch.prover import BatchProver, prove  # noqa: E402
+from plonky25_torch.prover.prove import GRIND_WINDOW  # noqa: E402
 from plonky25_torch.verifier import get_verifier, verify_proof  # noqa: E402
 from plonky25_torch.witness import pack_witness  # noqa: E402
 
@@ -56,13 +90,35 @@ P = 0xFFFFFFFF00000001
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 DEVICE = "cuda"
 B = 2048
+B_PROVE = 256
+LOG_N = 20
 TAMPERED = ("pow", "merkle_sibling", "fold_sibling", "final_poly")
+AOS, SOA = "poseidon2_permute_w12", "poseidon2_permute_soa"
 # H100 SXM rates (NVIDIA data sheet; CUDA C Programming Guide throughput
 # table for compute capability 9.0): HBM bytes/s, and per SM per clock
 # 64 results of 32-bit integer add/compare/logic/shift/select (ALU pipe),
 # 64 of 32-bit integer multiply-add (FMA pipe), 4 x 32 instructions dispatched.
 HBM_BYTES_PER_S = 3.35e12
 ALU_PER_CLK, FMA_PER_CLK, DISPATCH_PER_CLK = 64, 64, 128
+# What one permutation must compute (csrc/poseidon2_common.cuh): 736
+# Goldilocks products (x^7 is 4, in 8 x 12 full-round and 22 partial-round
+# S-boxes; 22 x 12 internal-diagonal products) and 1,182 modular adds (118
+# round constants; 9 M_E, each 3 M4 of 14 adds and 4 block sums of 5; 22
+# internal layers of 11 + 12).
+P2_PRODUCTS = 4 * (8 * 12 + 22) + 22 * 12
+P2_ADDS = (8 * 12 + 22) + 9 * (3 * 14 + 4 * 5) + 22 * (11 + 12)
+# The fewest 32-bit instructions each needs, 64-bit values held as two
+# 32-bit words and reduction left lazy.  A product: the four 32x32->64
+# partial products of the 128-bit product (IMAD.WIDE.U32, FMA pipe, the
+# cross-term sums folded into their addends), two adds to carry the cross
+# terms into the top words, four to reduce 128 bits to 64 with
+# 2^64 = 2^32 - 1 and 2^96 = -1 (a three-input add per word, two to fold
+# the last carry): 6 on the ALU pipe.  An add: one two-word add, 2 on the
+# ALU pipe.
+PRODUCT_FMA, PRODUCT_ALU, ADD_ALU = 4, 6, 2
+P2_OPS = {"fma_pipe": P2_PRODUCTS * PRODUCT_FMA,
+          "alu_pipe": P2_PRODUCTS * PRODUCT_ALU + P2_ADDS * ADD_ALU}
+P2_OPS["total"] = P2_OPS["fma_pipe"] + P2_OPS["alu_pipe"]
 
 
 class SmokeError(RuntimeError):
@@ -96,13 +152,50 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-# ------------------------------------------------------------ phase 2
+def counted(fn):
+    """Run fn() with both kernels' launch counts set to 0 just before it;
+    return (fn's result, {kernel: launches} read just after)."""
+    torch.cuda.synchronize()
+    p2.poseidon2_permute.launches = 0
+    p2.poseidon2_permute_soa.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {AOS: p2.poseidon2_permute.launches,
+                 SOA: p2.poseidon2_permute_soa.launches}
+
+
+class StageClock:
+    """CUDA events recorded at each stage boundary (the paths' on_stage)."""
+
+    def __init__(self):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events = [("start", ev)]
+
+    def __call__(self, name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append((name, ev))
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return {name: self.events[i][1].elapsed_time(ev)
+                for i, (name, ev) in enumerate(self.events[1:])}
+
+
+# ------------------------------------------------------------ build
+
+def clocks_per_state(mix):
+    """SM clocks one state costs at the issue rates above, for a mix
+    {"alu_pipe", "fma_pipe", "total"} of instructions per state."""
+    return max(mix["alu_pipe"] / ALU_PER_CLK, mix["fma_pipe"] / FMA_PER_CLK,
+               mix["total"] / DISPATCH_PER_CLK)
+
 
 def sass_mix(path):
-    """Per-thread instruction counts of the kernel, by pipe, from its SASS.
-
-    The kernel is straight-line code (every round unrolled), so the static
-    count is what one thread executes."""
+    """Per-thread instruction counts of the library's kernel, by pipe, from
+    its SASS.  Both kernels are straight-line code (every round unrolled),
+    so the static count is what one thread executes."""
     sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", path],
                           capture_output=True, text=True, check=True).stdout
     ops = Counter(re.findall(
@@ -120,12 +213,12 @@ def sass_mix(path):
             "by_opcode": dict(ops.most_common())}
 
 
-# ------------------------------------------------------------ phase 3
+# ------------------------------------------------------------ kernels
 
-def random_states(n, seed):
+def random_states(n, seed, lane_major=False):
     rng = np.random.default_rng(seed)
-    return gl.from_u64(rng.integers(0, P, size=(n, 12), dtype=np.uint64),
-                       DEVICE)
+    s = rng.integers(0, P, size=(n, 12), dtype=np.uint64)
+    return gl.from_u64(s.T.copy() if lane_major else s, DEVICE)
 
 
 def edge_states():
@@ -137,19 +230,30 @@ def edge_states():
     return gl.from_u64(np.asarray(rows, dtype=np.uint64), DEVICE)
 
 
-def kernel_vs_plain(state):
-    """Max |kernel - plain| over both limbs (0 when bit-equal)."""
-    out = p2.poseidon2_permute(state)
-    ref = p2.poseidon2_permute_plain(state)
+def max_err(a, b):
+    """Max |a - b| over both limbs (0 when bit-equal)."""
     torch.cuda.synchronize()
-    return max(int((out.lo - ref.lo).abs().max()),
-               int((out.hi - ref.hi).abs().max()))
+    return max(int((a.lo - b.lo).abs().max()), int((a.hi - b.hi).abs().max()))
 
 
-def main_path_shapes(v, b):
-    """{states per launch: launches} of one verification of b proofs: the
-    transcript's duplex steps, the fused Merkle walk (leaf hash + one
-    compression per level), the fold's leaf hash and its walk."""
+def transposed(x):
+    return gl.GL(x.lo.T.contiguous(), x.hi.T.contiguous())
+
+
+def soa_vs_plain_and_aos(planes):
+    """Max error of the lane-major kernel against its plain version and
+    against the state-major kernel on the same states."""
+    out = p2.poseidon2_permute_soa(planes)
+    err = max_err(out, p2.poseidon2_permute_soa_plain(planes))
+    aos = p2.poseidon2_permute(transposed(planes))
+    return max(err, max_err(out, transposed(aos)))
+
+
+def verify_path_shapes(v, b):
+    """{states per launch: launches} of the state-major kernel in one
+    verification of b proofs: the transcript's duplex steps, the fused
+    Merkle walk (leaf hash + one compression per level), the fold's leaf
+    hash and its walk."""
     nb = 2                                   # trace and quotient batches
     shapes = Counter()
     shapes[b] += v.n_steps
@@ -158,7 +262,56 @@ def main_path_shapes(v, b):
     return dict(shapes)
 
 
-# ------------------------------------------------------------ phases 4, 5
+def transcript_steps(log_n, fc):
+    """Duplex steps of the prover's transcript (the verifier's schedule)."""
+    sym = SymbolicChallenger()
+    sym.observe(4)                       # trace commitment
+    sym.sample_ext()                     # alpha
+    sym.observe(4)                       # quotient commitment
+    sym.sample_ext()                     # zeta
+    sym.sample_ext()                     # alpha_fri
+    for _ in range(log_n):               # FRI commit phases
+        sym.observe(4)
+        sym.sample_ext()
+    sym.observe(1)                       # PoW witness
+    sym.sample()
+    for _ in range(fc.num_queries):
+        sym.sample()
+    return len(sym.steps)
+
+
+def prove_path_shapes(log_n, fc, width, b, windows):
+    """{kernel: {states per launch: launches}} of proving b traces of
+    2^log_n rows: the state-major kernel's transcript duplexes over the b
+    transcripts; the lane-major kernel's trace tree (sponge chunks, then one
+    compression per level), quotient tree (2 columns), FRI commit trees
+    (4 columns, one per phase) and `windows` grind windows."""
+    log_max = log_n + fc.log_blowup
+    soa = Counter()
+
+    def tree(log_h, w):
+        soa[b << log_h] += -(-w // RATE)
+        for t in range(log_h):
+            soa[b << t] += 1
+
+    tree(log_max, width)
+    tree(log_max, 2)
+    for log_folded in range(log_max - 1, fc.log_blowup - 1, -1):
+        tree(log_folded, 4)
+    soa[b * GRIND_WINDOW] += windows
+    return {AOS: {b: transcript_steps(log_n, fc)}, SOA: dict(soa)}
+
+
+def check_launches(path, got, shapes):
+    """The path's counts equal its shape's, and each of its kernels ran."""
+    for k in (AOS, SOA):
+        want = sum(shapes[k].values())
+        check(got[k] == want, f"{path}: {k} launched {got[k]} times, the "
+              f"shape gives {want}")
+        check(got[k] > 0 or not shapes[k], f"{path}: {k} was not launched")
+
+
+# ------------------------------------------------------------ verifier paths
 
 def tamper(proof, kind):
     p = copy.deepcopy(proof)
@@ -177,6 +330,10 @@ def tamper(proof, kind):
 
 def ext_int(x):
     return [int(gl.to_u64(x.c0)), int(gl.to_u64(x.c1))]
+
+
+def compact(proof):
+    return json.dumps(proof_to_json(proof), separators=(",", ":"))
 
 
 def profile_device_time(fn):
@@ -201,6 +358,22 @@ def profile_device_time(fn):
     return total, count, kernels
 
 
+def device_summary(prof, wall_ms):
+    if not prof:
+        return "device time not measured (profiler saw no kernels)", None
+    p2_ms = {k: sum(t for name, (t, _) in prof[2].items() if tag in name)
+             for k, tag in ((AOS, "w12"), (SOA, "soa"))}
+    text = (f"{prof[0]:.1f} ms device time in {prof[1]} kernels "
+            f"(busy {100 * prof[0] / wall_ms:.0f}% of {wall_ms:.1f} ms), "
+            f"Poseidon2 state-major {p2_ms[AOS]:.1f} ms, lane-major "
+            f"{p2_ms[SOA]:.1f} ms")
+    return text, {"device_ms": prof[0], "device_kernels": prof[1],
+                  "busy_share": prof[0] / wall_ms, "poseidon2_ms": p2_ms,
+                  "top_kernels": sorted(([k, t, c] for k, (t, c)
+                                         in prof[2].items()),
+                                        key=lambda x: -x[1])[:12]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="write the measurements here as JSON")
@@ -211,8 +384,9 @@ def main(argv=None):
         return 2
     t_start = time.perf_counter()
     report = {}
+    path_launches, path_shapes = {}, {}
 
-    # 1. the card
+    # ---- card
     card = nvidia_smi("name,power.limit")
     print(card)
     max_sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
@@ -220,52 +394,78 @@ def main(argv=None):
     report["card"] = {"nvidia_smi": card, "max_sm_clock_mhz": max_sm_mhz,
                       "sm_count": sms}
 
-    # 2. build
+    # ---- build
     t0 = time.perf_counter()
-    built = p2.kernel_library()
+    libs = build.build_many(["poseidon2", "poseidon2_soa"])
     build_s = time.perf_counter() - t0
-    regs = re.search(r"Used (\d+) registers", built.log)
-    spills = re.search(r"(\d+) bytes spill stores", built.log)
-    mix = sass_mix(built.path)
-    print(f"[build] {os.path.relpath(built.path, ROOT)} for sm_90a in "
-          f"{build_s:.1f} s (nvcc {built.seconds:.1f} s); "
-          f"{regs.group(1) if regs else '?'} registers, "
-          f"{spills.group(1) if spills else '?'} bytes spilled; "
-          f"{mix['total']} SASS instructions per permutation "
-          f"(ALU pipe {mix['alu_pipe']}, FMA pipe {mix['fma_pipe']})")
-    report["build"] = {"seconds": build_s, "nvcc_seconds": built.seconds,
-                       "ptxas": built.log, "sass": mix}
+    p2.kernel_library()
+    p2.soa_kernel_library()
+    mixes, report["build"] = {}, {"seconds": build_s,
+                                  "permutation_ops": P2_OPS}
+    for kernel, name in ((AOS, "poseidon2"), (SOA, "poseidon2_soa")):
+        built = libs[name]
+        regs = re.search(r"Used (\d+) registers", built.log)
+        spills = re.search(r"(\d+) bytes spill stores", built.log)
+        mixes[kernel] = sass_mix(built.path)
+        print(f"[build] {os.path.relpath(built.path, ROOT)} for sm_90a (nvcc "
+              f"{built.seconds:.1f} s; both built in {build_s:.1f} s): "
+              f"{regs.group(1) if regs else '?'} registers, "
+              f"{spills.group(1) if spills else '?'} bytes spilled; "
+              f"{mixes[kernel]['total']} SASS instructions per permutation "
+              f"(ALU pipe {mixes[kernel]['alu_pipe']}, FMA pipe "
+              f"{mixes[kernel]['fma_pipe']}) against the arithmetic's "
+              f"fewest {P2_OPS['total']} (ALU {P2_OPS['alu_pipe']}, FMA "
+              f"{P2_OPS['fma_pipe']})")
+        report["build"][kernel] = {"nvcc_seconds": built.seconds,
+                                   "ptxas": built.log, "sass": mixes[kernel]}
 
-    # 3. kernel against the plain version
+    # ---- fixtures and the shapes every path launches
     with open(os.path.join(FIXTURES, "proof_fibonacci_expected.json")) as f:
         expected = json.load(f)
-    proof = load_proof(os.path.join(FIXTURES, "proof_fibonacci_refimpl.json"))
+    with open(os.path.join(FIXTURES, "proof_fibonacci8192_expected.json")) as f:
+        expected_8192 = json.load(f)
+    fixture_path = os.path.join(FIXTURES, "proof_fibonacci_refimpl.json")
+    with open(fixture_path) as f:
+        fixture_text = f.read()
+    proof = load_proof(fixture_path)
     fc = FriConfig(**expected["fri_config"])
     cfg = derive_config(proof, fc)
     v = get_verifier(FibonacciAir(), cfg, DEVICE)
-    single_shapes = main_path_shapes(v, 1)
-    batch_shapes = main_path_shapes(v, B)
-    err = 0
+    path_shapes["verify_single"] = {AOS: verify_path_shapes(v, 1), SOA: {}}
+    path_shapes["verify_batch"] = {AOS: verify_path_shapes(v, B), SOA: {}}
+    w64 = proof.opening_proof.fri_proof.pow_witness
+    path_shapes["prove_64"] = prove_path_shapes(
+        6, fc, 3, 1, w64 // GRIND_WINDOW + 1)
+
+    # ---- state-major kernel against its plain version
+    err_aos = 0
     sizes = [1, 255, 257, 1_048_579]
     for n in sizes:
-        err = max(err, kernel_vs_plain(random_states(n, n)))
-    err = max(err, kernel_vs_plain(edge_states()))
+        s = random_states(n, n)
+        err_aos = max(err_aos, max_err(p2.poseidon2_permute(s),
+                                       p2.poseidon2_permute_plain(s)))
+    edges = edge_states()
+    err_aos = max(err_aos, max_err(p2.poseidon2_permute(edges),
+                                   p2.poseidon2_permute_plain(edges)))
     kat = expected["poseidon2_known_answers"]
     kat_in = gl.from_u64(np.asarray([k["input"] for k in kat], np.uint64), DEVICE)
-    kat_out = p2.poseidon2_permute(kat_in)
-    check(gl.to_u64(kat_out).tolist() == [k["output"] for k in kat],
-          "kernel disagrees with the fixture's Poseidon2 known answers")
-    err = max(err, kernel_vs_plain(kat_in))
-    path_sizes = sorted(set(single_shapes) | set(batch_shapes))
-    for n in path_sizes:
-        err = max(err, kernel_vs_plain(random_states(n, 7 * n + 1)))
-    check(err == 0, f"kernel differs from the plain version by {err}")
-    print(f"[kernel] poseidon2_permute_w12 bit-equal to the plain version at "
-          f"N={','.join(map(str, sizes))}, on {edge_states().shape[0]} "
-          f"edge-value states, on {len(kat)} known answers and at the main "
-          f"path's N={','.join(map(str, path_sizes))}")
+    check(gl.to_u64(p2.poseidon2_permute(kat_in)).tolist()
+          == [k["output"] for k in kat],
+          "state-major kernel disagrees with the fixture's known answers")
+    verify_sizes = sorted(set(path_shapes["verify_single"][AOS])
+                          | set(path_shapes["verify_batch"][AOS]))
+    for n in verify_sizes:
+        s = random_states(n, 7 * n + 1)
+        err_aos = max(err_aos, max_err(p2.poseidon2_permute(s),
+                                       p2.poseidon2_permute_plain(s)))
+    check(err_aos == 0, f"state-major kernel differs from the plain version "
+          f"by {err_aos}")
+    print(f"[kernel] {AOS} bit-equal to the plain version at "
+          f"N={','.join(map(str, sizes))}, on {edges.shape[0]} edge-value "
+          f"states, on {len(kat)} known answers and at the verifier paths' "
+          f"N={','.join(map(str, verify_sizes))}")
 
-    # 4. one proof through verify_proof
+    # ---- one proof through verify_proof
     r = verify_proof(proof, FibonacciAir(), fc, device=DEVICE)
     for k, want in expected["verdict"].items():
         check(bool(getattr(r, k)) == want, f"fixture verdict {k}={want} not met")
@@ -289,32 +489,28 @@ def main(argv=None):
     def verify_one():
         return bool(verify_proof(proof, FibonacciAir(), fc, device=DEVICE).ok)
 
-    torch.cuda.synchronize()
-    p2.poseidon2_permute.launches = 0
-    check(verify_one(), "fixture rejected")
-    launches_single = p2.poseidon2_permute.launches
-    check(launches_single == sum(single_shapes.values()) and launches_single > 0,
-          f"single proof launched the kernel {launches_single} times, "
-          f"expected {sum(single_shapes.values())}")
+    ok, path_launches["verify_single"] = counted(verify_one)
+    check(ok, "fixture rejected")
+    check_launches("verify_single", path_launches["verify_single"],
+                   path_shapes["verify_single"])
     lat = []
     for _ in range(5):
         t0 = time.perf_counter()
         check(verify_one(), "fixture rejected")
         lat.append((time.perf_counter() - t0) * 1e3)
-    prof1 = profile_device_time(verify_one)
-    dev1 = (f"{prof1[0]:.1f} ms device time in {prof1[1]} kernels"
-            if prof1 else "device time not measured (profiler saw no kernels)")
+    dev1, prof1 = device_summary(profile_device_time(verify_one),
+                                 statistics.median(lat))
     print(f"[single] fixture accepted on cuda with the expected alpha, zeta, "
           f"betas and {len(expected['query_indices'])} query indices; "
           f"{len(flags)} tampers and a wrong query count rejected; "
-          f"{launches_single} kernel launches; latency median "
-          f"{statistics.median(lat):.1f} ms, best {min(lat):.1f} ms; {dev1}")
-    report["single"] = {"latency_ms": lat, "launches": launches_single,
-                        "shapes": single_shapes,
-                        "device_ms": prof1[0] if prof1 else None,
-                        "device_kernels": prof1[1] if prof1 else None}
+          f"{path_launches['verify_single'][AOS]} kernel launches; latency "
+          f"median {statistics.median(lat):.1f} ms, best {min(lat):.1f} ms; "
+          f"{dev1}")
+    report["single"] = {"latency_ms": lat,
+                        "launches": path_launches["verify_single"],
+                        "profile": prof1}
 
-    # 5. a batch of B proofs
+    # ---- a batch of B proofs through BatchVerifier
     bv = BatchVerifier(FibonacciAir(), cfg, device=DEVICE)
     w = pack_witness(proof, cfg, DEVICE)
     lanes = [3, B // 3, 2 * B // 3, B - 1]    # one lane per tamper kind
@@ -328,101 +524,271 @@ def main(argv=None):
         return bv.verify_witnesses(ws, on_stage)
 
     check(torch.equal(verify_batch(), want), "batch verdicts differ")
-    torch.cuda.synchronize()
-    p2.poseidon2_permute.launches = 0
-    ok = verify_batch()
-    torch.cuda.synchronize()
-    launches_batch = p2.poseidon2_permute.launches
+    ok, path_launches["verify_batch"] = counted(verify_batch)
     check(torch.equal(ok, want), "batch verdicts differ")
-    check(launches_batch == sum(batch_shapes.values()),
-          f"batch launched the kernel {launches_batch} times, expected "
-          f"{sum(batch_shapes.values())}")
+    check_launches("verify_batch", path_launches["verify_batch"],
+                   path_shapes["verify_batch"])
     runs = []
     torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
         t0 = time.perf_counter()
-        ok = verify_batch()
-        check(torch.equal(ok, want), "batch verdicts differ")
+        check(torch.equal(verify_batch(), want), "batch verdicts differ")
         runs.append((time.perf_counter() - t0) * 1e3)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    events = [("start", torch.cuda.Event(enable_timing=True))]
-    events[0][1].record()
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append((name, ev))
-
-    verify_batch(mark)
-    torch.cuda.synchronize()
-    stage_ms = {name: events[i][1].elapsed_time(ev)
-                for i, (name, ev) in enumerate(events[1:])}
-    prof = profile_device_time(verify_batch)
+    clock = StageClock()
+    verify_batch(clock)
+    stage_ms = clock.ms()
     ms_batch = statistics.median(runs)
+    devb, profb = device_summary(profile_device_time(verify_batch), ms_batch)
     qps = B * v.Q / (ms_batch / 1e3)
-    stages = ", ".join(f"{k} {t:.1f}" for k, t in stage_ms.items())
-    if prof:
-        p2_ms, p2_n = next(((t, c) for k, (t, c) in prof[2].items()
-                            if "poseidon2" in k), (0.0, 0))
-        devb = (f"{prof[0]:.1f} ms device time in {prof[1]} kernels, "
-                f"Poseidon2 {p2_ms:.1f} ms in {p2_n}")
-    else:
-        devb = "device time not measured (profiler saw no kernels)"
-    print(f"[batch] B={B} x Q={v.Q}: verdicts exact ({len(lanes)} "
-          f"tampered lanes rejected); {launches_batch} kernel launches; "
-          f"{ms_batch:.1f} ms per batch (median of {len(runs)}), "
-          f"{qps:.0f} queries/s; peak {peak_gb:.2f} GB; stage ms: {stages}; "
-          f"{devb}")
-    report["batch"] = {
-        "B": B, "Q": v.Q, "ms_runs": runs, "ms": ms_batch,
-        "queries_per_s": qps, "peak_allocated_gb": peak_gb,
-        "stage_ms": stage_ms, "launches": launches_batch,
-        "shapes": batch_shapes,
-        "device_ms": prof[0] if prof else None,
-        "device_kernels": prof[1] if prof else None,
-        "top_kernels": sorted(([k, t, c] for k, (t, c) in prof[2].items()),
-                              key=lambda x: -x[1])[:12] if prof else None}
+    print(f"[batch] B={B} x Q={v.Q}: verdicts exact ({len(lanes)} tampered "
+          f"lanes rejected); {path_launches['verify_batch'][AOS]} kernel "
+          f"launches; {ms_batch:.1f} ms per batch (median of {len(runs)}), "
+          f"{qps:.0f} queries/s; peak {peak_gb:.2f} GB; stage ms: "
+          + ", ".join(f"{k} {t:.1f}" for k, t in stage_ms.items())
+          + f"; {devb}")
+    report["batch"] = {"B": B, "Q": v.Q, "ms_runs": runs, "ms": ms_batch,
+                       "queries_per_s": qps, "peak_allocated_gb": peak_gb,
+                       "stage_ms": stage_ms,
+                       "launches": path_launches["verify_batch"],
+                       "profile": profb}
 
-    # 6. the kernel at the main path's shapes
-    clk_hz = max_sm_mhz * 1e6
-    per_state_clk = max(mix["alu_pipe"] / ALU_PER_CLK,
-                        mix["fma_pipe"] / FMA_PER_CLK,
-                        mix["total"] / DISPATCH_PER_CLK)
-    rows, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    ops_ms_total = bytes_ms_total = 0.0
-    for n, count in sorted(batch_shapes.items()):
-        s = random_states(n, n)
-        ms = cuda_ms(lambda: p2.poseidon2_permute(s), 20 if n < 10**5 else 5)
-        plain = cuda_ms(lambda: p2.poseidon2_permute_plain(s),
-                        3 if n < 10**5 else 1)
-        ops_ms = n * per_state_clk / (sms * clk_hz) * 1e3
-        bytes_ms = n * 12 * 2 * 8 * 2 / HBM_BYTES_PER_S * 1e3
-        row = {"states": n, "launches": count, "ms": ms, "plain_ms": plain,
-               "bound_ms": max(ops_ms, bytes_ms),
-               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
-        rows.append(row)
-        for k in tot:
-            tot[k] += count * row[k]
-        ops_ms_total += count * ops_ms
-        bytes_ms_total += count * bytes_ms
-    kernel_row = {
-        "name": "poseidon2_permute_w12", "route": "cuda",
-        "source": p2.KERNEL_SOURCE, "replaces": p2.REPLACES,
-        "launches": launches_batch, "launches_single_proof": launches_single,
-        "bit_equal": err == 0, "max_abs_err": float(err), "tolerance": 0,
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-        "bound_ms": tot["bound_ms"],
-        "bound_by": "operations" if ops_ms_total >= bytes_ms_total else "bytes",
-        "library_ms": None,
-        "per_launch": rows,
+    # ---- lane-major kernel against its plain version and the other kernel
+    # every state count of the four prover paths (the number of grind
+    # windows does not change the counts)
+    prover_sizes = sorted(set().union(*(
+        prove_path_shapes(log_n, fc, 3, b, 1)[SOA]
+        for log_n, b in ((6, 1), (13, 1), (LOG_N, 1), (6, B_PROVE)))))
+    err_soa = 0
+    for n in sizes:
+        err_soa = max(err_soa, soa_vs_plain_and_aos(
+            random_states(n, n, lane_major=True)))
+    err_soa = max(err_soa, soa_vs_plain_and_aos(transposed(edges)))
+    kat_soa = p2.poseidon2_permute_soa(transposed(kat_in))
+    check(gl.to_u64(transposed(kat_soa)).tolist() == [k["output"] for k in kat],
+          "lane-major kernel disagrees with the fixture's known answers")
+    err_soa = max(err_soa, soa_vs_plain_and_aos(transposed(kat_in)))
+    for n in prover_sizes:
+        err_soa = max(err_soa, soa_vs_plain_and_aos(
+            random_states(n, 3 * n + 2, lane_major=True)))
+        torch.cuda.empty_cache()
+    check(err_soa == 0, f"lane-major kernel differs from the plain version or "
+          f"the state-major kernel by {err_soa}")
+    print(f"[kernel-soa] {SOA} bit-equal to its plain version and to "
+          f"{AOS} at N={','.join(map(str, sizes))}, on the edge-value states, "
+          f"on the known answers and at the prover paths' "
+          f"N={','.join(map(str, prover_sizes))}")
+
+    # ---- prove fib(64): the fixture, byte for byte
+    air = FibonacciAir()
+    p64, path_launches["prove_64"] = counted(
+        lambda: prove(air, fibonacci_trace(64), fc, device=DEVICE))
+    check(compact(p64) == fixture_text,
+          "fib(64) proof differs from tests/fixtures/proof_fibonacci_refimpl.json")
+    check_launches("prove_64", path_launches["prove_64"], path_shapes["prove_64"])
+    print(f"[prove-64] fib(64) proof byte-equal to the fixture "
+          f"({len(fixture_text)} bytes, PoW witness {w64}); launches: "
+          f"{AOS} {path_launches['prove_64'][AOS]}, {SOA} "
+          f"{path_launches['prove_64'][SOA]} (as the shape gives)")
+
+    # ---- prove fib(2^13): the JAX package's digest
+    p8k = prove(air, fibonacci_trace(1 << 13), fc, device=DEVICE)
+    text = compact(p8k)
+    r8k = verify_proof(p8k, air, fc, device=DEVICE)
+    got = {
+        "sha256": hashlib.sha256(text.encode()).hexdigest(),
+        "trace_commit": p8k.commitments.trace.value,
+        "quotient_commit": p8k.commitments.quotient_chunks.value,
+        "phase_commits": [c.value for c in
+                          p8k.opening_proof.fri_proof.commit_phase_commits],
+        "alpha": ext_int(r8k.alpha), "zeta": ext_int(r8k.zeta),
+        "pow_witness": p8k.opening_proof.fri_proof.pow_witness,
+        "query_indices": r8k.query_indices.tolist(),
     }
-    report["kernels"] = [kernel_row]
+    for k, val in got.items():
+        check(val == expected_8192[k], f"fib(2^13) {k} differs from the JAX "
+              f"package's")
+    check(bool(r8k.ok), "fib(2^13) proof rejected")
+    print(f"[prove-8192] fib(2^13) proof ({len(text)} bytes) equal to the JAX "
+          f"package's: sha256 {got['sha256'][:16]}..., commitments, alpha, "
+          f"zeta, PoW witness {got['pow_witness']}, query indices; accepted")
+
+    # ---- prove fib(2^20)
+    t0 = time.perf_counter()
+    trace = np.asarray(fibonacci_trace(1 << LOG_N), dtype=np.uint64)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    big = prove(air, trace, fc, device=DEVICE)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    peak_prove_gb = torch.cuda.max_memory_allocated() / 1e9
+    big_text = compact(big)
+    windows = big.opening_proof.fri_proof.pow_witness // GRIND_WINDOW + 1
+    path_shapes["prove"] = prove_path_shapes(LOG_N, fc, 3, 1, windows)
+    steady = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again, path_launches["prove"] = counted(
+            lambda: prove(air, trace, fc, device=DEVICE))
+        steady.append((time.perf_counter() - t0) * 1e3)
+        check(compact(again) == big_text, "fib(2^20) proofs differ between runs")
+    check_launches("prove", path_launches["prove"], path_shapes["prove"])
+    clock = StageClock()
+    prove(air, trace, fc, device=DEVICE, on_stage=clock)
+    prove_stage_ms = clock.ms()
+    devp, profp = device_summary(profile_device_time(
+        lambda: prove(air, trace, fc, device=DEVICE)), statistics.median(steady))
+    rb = verify_proof(big, air, fc, device=DEVICE)
+    check(bool(rb.ok), "fib(2^20) proof rejected by verify_proof")
+    rt = verify_proof(tamper(big, "merkle_sibling"), air, fc, device=DEVICE)
+    check(not bool(rt.ok) and not bool(rt.merkle_ok),
+          "fib(2^20) proof with a flipped Merkle sibling accepted")
+    print(f"[prove] fib(2^{LOG_N}) at FriConfig(1, 100, 16): {len(big_text)} "
+          f"bytes, accepted by verify_proof, flipped Merkle sibling rejected; "
+          f"first proof {first_ms:.1f} ms, steady {statistics.median(steady):.1f}"
+          f" ms (median of 3; trace made in {setup_s:.1f} s beforehand); "
+          f"launches {AOS} {path_launches['prove'][AOS]}, {SOA} "
+          f"{path_launches['prove'][SOA]} ({windows} grind windows); peak "
+          f"{peak_prove_gb:.2f} GB; stage ms: "
+          + ", ".join(f"{k} {t:.1f}" for k, t in prove_stage_ms.items())
+          + f"; {devp}")
+    report["prove"] = {"log_n": LOG_N, "bytes": len(big_text),
+                       "first_ms": first_ms, "steady_ms": steady,
+                       "trace_setup_s": setup_s, "stage_ms": prove_stage_ms,
+                       "launches": path_launches["prove"], "windows": windows,
+                       "peak_allocated_gb": peak_prove_gb, "profile": profp}
+
+    # ---- BatchProver on B_PROVE copies of fib(64), one lane tampered
+    bad_lane = B_PROVE // 3
+    traces = np.asarray([fibonacci_trace(64)] * B_PROVE, dtype=np.uint64)
+    traces[bad_lane, 10, 2] = (int(traces[bad_lane, 10, 2]) + 1) % P
+    bp = BatchProver(air, 6, fc, device=DEVICE)
+    proofs = bp.prove(traces)
+    proofs, path_launches["batch_prove"] = counted(lambda: bp.prove(traces))
+    for i, pr in enumerate(proofs):
+        if i != bad_lane:
+            check(compact(pr) == fixture_text,
+                  f"batch lane {i}: proof differs from the fixture")
+    check(compact(proofs[bad_lane]) != fixture_text, "tampered lane unchanged")
+    rbad = verify_proof(proofs[bad_lane], air, fc, device=DEVICE)
+    check([bool(rbad.ok), bool(rbad.pow_ok), bool(rbad.merkle_ok),
+           bool(rbad.fold_ok), bool(rbad.quotient_ok)]
+          == [False, True, True, True, False],
+          "tampered lane not rejected by its quotient check alone")
+    bp_windows = max(pr.opening_proof.fri_proof.pow_witness
+                     for pr in proofs) // GRIND_WINDOW + 1
+    path_shapes["batch_prove"] = prove_path_shapes(6, fc, 3, B_PROVE, bp_windows)
+    check_launches("batch_prove", path_launches["batch_prove"],
+                   path_shapes["batch_prove"])
+    one = path_launches["prove_64"]
+    check(path_launches["batch_prove"][AOS] == one[AOS]
+          and path_launches["batch_prove"][SOA] - bp_windows
+          == one[SOA] - path_shapes["prove_64"][SOA][GRIND_WINDOW],
+          "a batch launched the kernels more often than one proof")
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        bp.prove(traces)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    peak_bp_gb = torch.cuda.max_memory_allocated() / 1e9
+    clock = StageClock()
+    bp.prove(traces, on_stage=clock)
+    bp_stage_ms = clock.ms()
+    ms_bp = statistics.median(runs)
+    devbp, profbp = device_summary(profile_device_time(
+        lambda: bp.prove(traces)), ms_bp)
+    print(f"[batch-prove] B={B_PROVE} x fib(64): {B_PROVE - 1} proofs "
+          f"byte-equal to the fixture, lane {bad_lane} (tampered trace) "
+          f"rejected by its quotient check alone; {ms_bp:.1f} ms per batch "
+          f"(median of 3), {B_PROVE / ms_bp * 1e3:.1f} proofs/s; peak "
+          f"{peak_bp_gb:.2f} GB; launches {AOS} "
+          f"{path_launches['batch_prove'][AOS]}, {SOA} "
+          f"{path_launches['batch_prove'][SOA]} ({bp_windows} grind windows; "
+          f"one proof's counts apart from windows); stage ms: "
+          + ", ".join(f"{k} {t:.1f}" for k, t in bp_stage_ms.items())
+          + f"; {devbp}")
+    report["batch_prove"] = {"B": B_PROVE, "ms_runs": runs, "ms": ms_bp,
+                             "proofs_per_s": B_PROVE / ms_bp * 1e3,
+                             "peak_allocated_gb": peak_bp_gb,
+                             "stage_ms": bp_stage_ms, "windows": bp_windows,
+                             "launches": path_launches["batch_prove"],
+                             "profile": profbp}
+
+    # ---- each kernel at each path's shapes
+    clk_hz = max_sm_mhz * 1e6
+    timed = {}
+
+    def time_kernel(kernel, n):
+        if (kernel, n) not in timed:
+            lane_major = kernel == SOA
+            s = random_states(n, n, lane_major)
+            fn, plain = ((p2.poseidon2_permute_soa, p2.poseidon2_permute_soa_plain)
+                         if lane_major else
+                         (p2.poseidon2_permute, p2.poseidon2_permute_plain))
+            ops_ms = n * clocks_per_state(P2_OPS) / (sms * clk_hz) * 1e3
+            sass_ms = (n * clocks_per_state(mixes[kernel]) / (sms * clk_hz)
+                       * 1e3)
+            bytes_ms = n * 12 * 2 * 8 * 2 / HBM_BYTES_PER_S * 1e3
+            timed[kernel, n] = {
+                "states": n,
+                "ms": cuda_ms(lambda: fn(s), 20 if n < 10**5 else 5),
+                "plain_ms": cuda_ms(lambda: plain(s), 3 if n < 10**5 else 1),
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "sass_bound_ms": max(sass_ms, bytes_ms)}
+            del s
+            torch.cuda.empty_cache()
+        return timed[kernel, n]
+
+    paths = {AOS: {}, SOA: {}}
+    for path, shapes in path_shapes.items():
+        for kernel in (AOS, SOA):
+            rows = [dict(time_kernel(kernel, n), launches=c)
+                    for n, c in sorted(shapes[kernel].items())]
+            tot = {k: sum(r["launches"] * r[k] for r in rows)
+                   for k in ("ms", "plain_ms", "bound_ms", "sass_bound_ms")}
+            ops = sum(r["launches"] * r["bound_ms"] for r in rows
+                      if r["bound_by"] == "operations")
+            paths[kernel][path] = dict(
+                tot, launches=path_launches[path][kernel],
+                bound_by="operations" if 2 * ops >= tot["bound_ms"] else "bytes",
+                per_launch=rows)
+    same_n = {k: time_kernel(k, 1 << 21) for k in (AOS, SOA)}
+    print(f"[timing] at 2^21 states (the trace tree's leaf hash): {AOS} "
+          f"{same_n[AOS]['ms']:.3f} ms, {SOA} {same_n[SOA]['ms']:.3f} ms, "
+          f"bound {same_n[SOA]['bound_ms']:.3f} ms from the permutation's "
+          f"arithmetic ({P2_OPS['alu_pipe']} ALU-pipe instructions per "
+          f"state), {same_n[AOS]['sass_bound_ms']:.3f} and "
+          f"{same_n[SOA]['sass_bound_ms']:.3f} ms at the kernels' own SASS "
+          f"counts; per path (ms / bound_ms): "
+          + "; ".join(f"{k} {p} {v['ms']:.2f}/{v['bound_ms']:.2f}"
+                      for k in (AOS, SOA) for p, v in paths[k].items()
+                      if v["launches"]))
+    kernel_rows = []
+    for kernel, src, rep, err in (
+            (AOS, p2.KERNEL_SOURCE, p2.REPLACES, err_aos),
+            (SOA, p2.SOA_KERNEL_SOURCE, p2.SOA_REPLACES, err_soa)):
+        main_path = paths[kernel]["prove"]
+        kernel_rows.append({
+            "name": kernel, "route": "cuda", "source": src, "replaces": rep,
+            "launches": main_path["launches"],
+            "launches_by_path": {p: v["launches"]
+                                 for p, v in paths[kernel].items()},
+            "bit_equal": err == 0, "max_abs_err": float(err), "tolerance": 0,
+            "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
+            "bound_ms": main_path["bound_ms"],
+            "bound_by": main_path["bound_by"], "library_ms": None,
+            "sass_bound_ms": main_path["sass_bound_ms"],
+            "at_2_pow_21": same_n[kernel], "paths": paths[kernel],
+        })
+    report["kernels"] = kernel_rows
     report["seconds"] = time.perf_counter() - t_start
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)
-    print(json.dumps({"kernels": [kernel_row]}))
+    print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,13 @@
-"""plonky25_torch: the Plonky3 STARK verifier of plonky25_tpu, ported to
-PyTorch and CUDA for NVIDIA Hopper.
+"""plonky25_torch: the Plonky3 STARK verifier and prover of plonky25_tpu,
+ported to PyTorch and CUDA for NVIDIA Hopper.
 
 It verifies proofs of single-stage GF(p^2) AIRs (FibonacciAir), one at a
-time (`verify_proof`) or in batches (`parallel.BatchVerifier`).  Field
-arithmetic is PyTorch on int64 limb tensors; every Poseidon2 permutation on
-a CUDA tensor runs the hand-written kernel csrc/poseidon2.cu.  Entry points
+time (`verify_proof`) or in batches (`parallel.BatchVerifier`), and proves
+them, one at a time (`prover.prove`) or in batches (`prover.BatchProver`).
+Field arithmetic is PyTorch on int64 limb tensors; every Poseidon2
+permutation on a CUDA tensor runs a hand-written kernel: csrc/poseidon2.cu
+on state-major states (the verifier, the transcripts), csrc/poseidon2_soa.cu
+on lane-major ones (the prover's Merkle trees and PoW grind).  Entry points
 take `device=` ("cuda" by default) and never move to the CPU on their own.
 
 The package imports torch, numpy and the standard library only: nothing of

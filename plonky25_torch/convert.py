@@ -1,11 +1,14 @@
-"""Carry a witness across from the JAX package.
+"""Carry values and witnesses across from the JAX package.
 
-`from_jax_witness` takes the dict that plonky25_tpu.witness.pack_witness
-returns, after the caller has turned every leaf into a numpy array (for
-example `jax.tree.map(np.asarray, w)`): its GL leaves hold uint32 `lo`/`hi`
-arrays and its GL2 leaves `c0`/`c1` pairs of them.  It returns the port's
-witness, equal to the port's own `pack_witness` of the same proof.  The
-structures are read by their field names, so nothing of JAX is imported.
+`from_jax` takes a JAX `GL` or `GL2`, or a dict or list of them, after the
+caller has turned every leaf into a numpy array (for example
+`jax.tree.map(np.asarray, x)`): GL leaves hold uint32 `lo`/`hi` arrays and
+GL2 leaves `c0`/`c1` pairs of them.  It returns the same structure of the
+port's GL / GL2 tensors.  Given the dict that plonky25_tpu.witness.pack_witness
+returns, that is the port's witness, equal to the port's own `pack_witness`
+of the same proof; the stage tests feed both packages the same trace
+columns and challenges through it.  The structures are read by their field
+names, so nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -18,8 +21,9 @@ from .fields.extension import GL2
 from .fields.goldilocks import GL
 
 
-def from_jax_witness(w, device="cuda"):
-    """The JAX witness `w` (numpy leaves) as the port's witness on `device`."""
+def from_jax(x, device="cuda"):
+    """A JAX GL / GL2 value, or a dict or list of them, with numpy uint32
+    limbs, as the port's GL / GL2 tensors on `device`."""
     device = resolve_device(device)
 
     def limb(a) -> torch.Tensor:
@@ -37,6 +41,6 @@ def from_jax_witness(w, device="cuda"):
             return GL(limb(x.lo), limb(x.hi))
         if isinstance(x, (list, tuple)):
             return [conv(v) for v in x]
-        raise TypeError(f"unexpected witness leaf {type(x).__name__}")
+        raise TypeError(f"unexpected leaf {type(x).__name__}")
 
-    return conv(w)
+    return conv(x)

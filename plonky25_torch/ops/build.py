@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` compiles with nvcc for sm_90a into
 `build/<name>-<hash>.so` at the root of the checkout, with a plain C
-interface that ctypes loads.  The hash covers the sources and the flags, so
+interface that ctypes loads; `build_many` runs one nvcc per source, all at
+once.  The hash covers the sources and the flags, so
 an edit rebuilds and an unchanged tree reuses the library.  The compiler's
 report (registers, spills) is kept beside the library as `.log`.
 """
@@ -46,30 +47,55 @@ def cuda_tool(name: str) -> str:
     return path
 
 
-def build(name: str) -> Built:
-    """Compile csrc/<name>.cu (unless built already) and load it."""
-    src = os.path.join(CSRC_DIR, name + ".cu")
+def _library_path(name: str) -> str:
+    """build/<name>-<hash>.so, the hash over the flags and every source."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu*"))):
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + f.read())
-    so = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
-    log_path = so[:-len(".so")] + ".log"
-    seconds = 0.0
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def build(name: str) -> Built:
+    """Compile csrc/<name>.cu (unless built already) and load it."""
+    return build_many([name])[name]
+
+
+def build_many(names) -> dict:
+    """Compile csrc/<name>.cu for every name not built yet, all nvcc
+    processes at once, then load each: {name: Built}."""
+    started = {}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    for name in names:
+        so = _library_path(name)
+        if os.path.exists(so):
+            continue
+        src = os.path.join(CSRC_DIR, name + ".cu")
         tmp = f"{so}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
+        proc = subprocess.Popen([cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        started[name] = (proc, time.perf_counter(), so, tmp, src)
+    seconds = {}
+    failed = []
+    for name, (proc, t0, so, tmp, src) in started.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-        with open(log_path, "w") as f:
-            f.write(proc.stdout + proc.stderr)
+            failed.append(f"nvcc failed on {src}:\n{out}")
+            continue
+        with open(so[:-len(".so")] + ".log", "w") as f:
+            f.write(out)
         os.replace(tmp, so)   # atomic: a concurrent loader sees all or nothing
-    log = ""
-    if os.path.exists(log_path):
-        with open(log_path) as f:
-            log = f.read()
-    return Built(ctypes.CDLL(so), so, log, seconds)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    built = {}
+    for name in names:
+        so = _library_path(name)
+        log_path = so[:-len(".so")] + ".log"
+        log = ""
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                log = f.read()
+        built[name] = Built(ctypes.CDLL(so), so, log, seconds.get(name, 0.0))
+    return built

@@ -1,0 +1,222 @@
+"""Two-adic NTT, coset LDE and barycentric evaluation over Goldilocks, on
+the port's limb tensors; the counterpart of plonky25_tpu/ops/ntt.py.
+
+The transforms are plain PyTorch ops (the JAX package has no Pallas kernel
+here): radix-2 Cooley-Tukey (DIT, natural or bit-reversed input, natural
+output) and Gentleman-Sande (DIF, natural input, bit-reversed output), each
+stage a reshape, two half-slices, one twiddle product and a concatenation.
+An NTT's output is fixed by the mathematics, so these two forms serve every
+length; the JAX package's six-step and four-step forms were TPU layout work
+and give the same values.
+
+Tables (root powers, coset points, LDE scales, bit-reversal indices) are
+built on the tensor's device, by doubling products and by
+`reverse_bits_len_u32`, and cached per shape and device: at 2^21 points a
+table built from Python ints would cost seconds of host time per call.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import torch
+
+from ..constants import GOLDILOCKS_P as P
+from ..fields import gl, gl2
+from ..fields.extension import GL2
+from ..fields.goldilocks import GL
+from ..refimpl.field import Gl
+from ..utils.bits import log2_strict, reverse_bits_len_u32
+
+
+def powers(base: int, n: int, device) -> GL:
+    """(base^0, base^1, ..., base^(n-1)) on `device`: each doubling step
+    multiplies the table so far by base^k and appends it."""
+    out = gl.ones((1,), device)
+    base %= P
+    while out.shape[0] < n:
+        k = out.shape[0]
+        out = gl.concatenate(
+            [out, gl.mul(out, gl.full((), pow(base, k, P), device))])
+    return out[:n]
+
+
+@lru_cache(maxsize=None)
+def _bitrev(log_n: int, device) -> torch.Tensor:
+    """Bit-reversal permutation of [0, 2^log_n) as an int64 index tensor."""
+    idx = torch.arange(1 << log_n, dtype=torch.int64, device=device)
+    return reverse_bits_len_u32(idx, log_n)
+
+
+@lru_cache(maxsize=None)
+def _root_powers(log_n: int, inverse: bool, device) -> GL:
+    """(w^0, ..., w^(N/2-1)), w the two-adic generator of order N (its
+    inverse when `inverse`)."""
+    w = Gl.two_adic_generator(log_n)
+    if inverse:
+        w = Gl.inv(w)
+    return powers(w, max(1, (1 << log_n) // 2), device)
+
+
+def _stage_twiddles(log_n: int, s: int, inverse: bool, device) -> GL:
+    """Twiddles of DIT stage s (half-size m = 2^s): w_N^(j * N/2^(s+1)) for
+    j in [m], a strided view of the root-power table."""
+    tab = _root_powers(log_n, inverse, device)
+    stride = (1 << log_n) >> (s + 1)
+    return tab[::stride][:1 << s]
+
+
+def _butterfly_stages(x: GL, log_n: int, inverse: bool, dif: bool) -> GL:
+    """Run the DIT butterflies (stages ascending, (e, o) -> (e + w o,
+    e - w o)) or the DIF ones (descending, (e, o) -> (e + o, (e - o) w))."""
+    n = 1 << log_n
+    batch = x.shape[:-1]
+    for s in (range(log_n - 1, -1, -1) if dif else range(log_n)):
+        m = 1 << s
+        tw = _stage_twiddles(log_n, s, inverse, x.device)       # (m,)
+        a = x.reshape(*batch, n // (2 * m), 2 * m)
+        e, o = a[..., :m], a[..., m:]
+        if dif:
+            lo_half, hi_half = gl.add(e, o), gl.mul(tw, gl.sub(e, o))
+        else:
+            t = gl.mul(tw, o)
+            lo_half, hi_half = gl.add(e, t), gl.sub(e, t)
+        x = gl.concatenate([lo_half, hi_half], dim=-1).reshape(*batch, n)
+    return x
+
+
+def _ntt_flat(x: GL, inverse: bool = False, scale: bool = True,
+              in_bitrev: bool = False) -> GL:
+    """Radix-2 DIT NTT along the last axis: natural order in (bit-reversed
+    with in_bitrev=True), natural order out.  inverse=True computes the
+    inverse transform, with its 1/N factor when `scale`."""
+    log_n = log2_strict(x.shape[-1])
+    if log_n == 0:
+        return x
+    if not in_bitrev:
+        x = x[..., _bitrev(log_n, x.device)]
+    x = _butterfly_stages(x, log_n, inverse, dif=False)
+    if inverse and scale:
+        x = gl.mul(gl.full((), Gl.inv((1 << log_n) % P), x.device), x)
+    return x
+
+
+def _ntt_flat_dif(x: GL, inverse: bool = False) -> GL:
+    """Radix-2 DIF NTT along the last axis: natural order in, bit-reversed
+    order out, no gather: _ntt_flat_dif(x)[rev(k)] == _ntt_flat(x)[k].  The
+    1/N factor of an inverse transform is NOT applied."""
+    log_n = log2_strict(x.shape[-1])
+    return _butterfly_stages(x, log_n, inverse, dif=True)
+
+
+def ntt(x: GL, inverse: bool = False) -> GL:
+    """NTT along the last axis; natural order in and out; inverse=True
+    includes the 1/N scale."""
+    return _ntt_flat(x, inverse)
+
+
+def intt(x: GL) -> GL:
+    return ntt(x, inverse=True)
+
+
+@lru_cache(maxsize=None)
+def _shift_powers(shift: int, log_n: int, device) -> GL:
+    return powers(shift, 1 << log_n, device)
+
+
+def coset_ntt(coeffs: GL, shift: int) -> GL:
+    """Evaluate the polynomials with coefficients `coeffs` (..., N) on the
+    coset shift * <g_N>."""
+    log_n = log2_strict(coeffs.shape[-1])
+    return ntt(gl.mul(_shift_powers(shift % P, log_n, coeffs.device), coeffs))
+
+
+def coset_intt(evals: GL, shift: int) -> GL:
+    """Coefficients of the polynomials whose evaluations on shift * <g_N>
+    are `evals` (..., N)."""
+    log_n = log2_strict(evals.shape[-1])
+    pw = _shift_powers(Gl.inv(shift % P), log_n, evals.device)
+    return gl.mul(pw, intt(evals))
+
+
+@lru_cache(maxsize=None)
+def _lde_scale(log_n: int, in_shift: int, out_shift: int, device,
+               bitrev: bool) -> GL:
+    """1/N * (out_shift / in_shift)^k for coefficient k: the inverse
+    transform's 1/N, the de-coset and the re-coset in one table; at
+    position rev(k) instead when `bitrev` (two_adic.rs:61-71)."""
+    ratio = out_shift % P * Gl.inv(in_shift % P) % P
+    tab = gl.mul(gl.full((), Gl.inv((1 << log_n) % P), device),
+                 powers(ratio, 1 << log_n, device))
+    return tab[_bitrev(log_n, device)] if bitrev else tab
+
+
+def coset_lde_pair(evals: GL, in_shift: int, log_blowup: int,
+                   out_shift: int = 7) -> GL:
+    """Low-degree extend evals (..., N) on in_shift*<g_N> to
+    out_shift*<g_{N*2^log_blowup}>, natural order out, with no bit-reversal
+    gather: a DIF inverse transform (bit-reversed coefficients), the scale
+    table in bit-reversed positions, zero padding as a zero interleave, and
+    a DIT forward transform on bit-reversed input."""
+    n = evals.shape[-1]
+    log_n = log2_strict(n)
+    batch = evals.shape[:-1]
+    c_rev = _ntt_flat_dif(evals, inverse=True)
+    c_rev = gl.mul(_lde_scale(log_n, in_shift, out_shift, evals.device, True),
+                   c_rev)
+    blow = 1 << log_blowup
+    z = gl.zeros(batch + (n, blow - 1), evals.device)
+    big = gl.concatenate([c_rev.reshape(*batch, n, 1), z], dim=-1)
+    return _ntt_flat(big.reshape(*batch, n * blow), in_bitrev=True)
+
+
+def coset_lde_to_rev(evals: GL, in_shift: int, log_blowup: int,
+                     out_shift: int = 7) -> GL:
+    """coset_lde_pair in BIT-REVERSED output order, the Merkle commit layout
+    (utils.rs:20-43): an unscaled inverse DIT transform, the combined scale,
+    zero padding, and a DIF forward transform, whose bit-reversed output is
+    the wanted order."""
+    n = evals.shape[-1]
+    log_n = log2_strict(n)
+    coeffs = _ntt_flat(evals, inverse=True, scale=False)
+    coeffs = gl.mul(
+        _lde_scale(log_n, in_shift, out_shift, evals.device, False), coeffs)
+    pad = gl.zeros(evals.shape[:-1] + ((n << log_blowup) - n,), evals.device)
+    return _ntt_flat_dif(gl.concatenate([coeffs, pad], dim=-1))
+
+
+@lru_cache(maxsize=None)
+def coset_points(log_n: int, shift: int, device) -> GL:
+    """shift * g^i for i in [N], g the two-adic generator of order N."""
+    return gl.mul(gl.full((), shift % P, device),
+                  powers(Gl.two_adic_generator(log_n), 1 << log_n, device))
+
+
+def _sum_last(x: GL2) -> GL2:
+    """Sum along the last axis (a power-of-two length) by halving."""
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = gl2.add(x[..., :half], x[..., half:])
+    return x[..., 0]
+
+
+def barycentric_eval_ext(evals: GL, shift: int, z: GL2) -> GL2:
+    """Evaluate base-field polynomials at an extension point from their
+    evaluations on shift*<g_N>:
+
+        p(z) = (z^N - s^N) / (N s^N) * sum_i e_i x_i / (z - x_i).
+
+    evals: GL (*S, C, N); z: GL2 (*S,), one point per leading index.
+    Returns GL2 (*S, C).  One batched extension inversion."""
+    n = evals.shape[-1]
+    log_n = log2_strict(n)
+    xs = coset_points(log_n, shift, evals.device)              # (N,)
+    inv_dens = gl2.inv(gl2.sub_base(z[..., None], xs))         # (*S, N)
+    weights = gl.mul(evals, xs)                                # (*S, C, N)
+    total = _sum_last(gl2.mul_base(inv_dens[..., None, :], weights))
+    s_n = pow(shift, n, P)
+    z_n = gl2.exp_power_of_2(z, log_n)
+    front = gl2.mul_base(
+        gl2.sub_base(z_n, gl.full((), s_n, evals.device)),
+        gl.full((), Gl.inv(n % P * s_n % P), evals.device))
+    return gl2.mul(front[..., None], total)

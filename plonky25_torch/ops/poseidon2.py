@@ -16,6 +16,13 @@ The plain version mirrors plonky25_tpu/ops/poseidon2.py (rounds in array
 form over a (..., 12) state; the constants of poseidon2_goldilocks.rs:11-164);
 the kernel replaces the Pallas kernel of
 plonky25_tpu/ops/pallas/poseidon2_pallas.py:103.
+
+`poseidon2_permute_soa(planes)` is the same permutation on lane-major
+states, planes (12, ...): lane k of every state in planes[k].  It picks by
+device in the same way, between `poseidon2_permute_soa_plain` (a mirror of
+the Pallas `_soa_*` helpers on a list of 12 lane arrays) and the kernel
+csrc/poseidon2_soa.cu, which replaces the Pallas kernel of
+poseidon2_pallas.py:219; `poseidon2_permute_soa.launches` is its own count.
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ from . import build
 
 KERNEL_SOURCE = "plonky25_torch/csrc/poseidon2.cu"
 REPLACES = "plonky25_tpu/ops/pallas/poseidon2_pallas.py:103"
+SOA_KERNEL_SOURCE = "plonky25_torch/csrc/poseidon2_soa.cu"
+SOA_REPLACES = "plonky25_tpu/ops/pallas/poseidon2_pallas.py:219"
 
 # ------------------------------------------------------------ plain version
 
@@ -108,29 +117,23 @@ def kernel_library() -> build.Built:
     """Build (at first use) and load csrc/poseidon2.cu."""
     built = build.build("poseidon2")
     fn = built.lib.p25_poseidon2_permute_w12
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return built
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_constants():
-    """The kernel's Constants struct: RC (8x12), RC_MID (22), diag (12)."""
-    words = [v % P for row in RC for v in row]
-    words += [v % P for v in RC_MID]
-    words += [(d - 1) % P for d in MAT_DIAG_M_1]
-    return (ctypes.c_uint64 * len(words))(*words)
-
-
-def check_kernel_input(state: GL) -> None:
-    """Raise unless `state` is what the kernel takes: two contiguous int64
-    limb tensors of one shape (..., 12) on one CUDA device."""
+def check_kernel_input(state: GL, lane_axis: int = -1) -> None:
+    """Raise unless `state` is what a kernel takes: two contiguous int64
+    limb tensors of one shape with 12 lanes on `lane_axis` ((..., 12) for
+    the state-major kernel, (12, ...) for the lane-major one), on one CUDA
+    device."""
     lo, hi = state
     if lo.dtype != torch.int64 or hi.dtype != torch.int64:
         raise TypeError(f"limbs must be int64, got {lo.dtype} and {hi.dtype}")
-    if lo.shape != hi.shape or lo.dim() == 0 or lo.shape[-1] != WIDTH:
+    if lo.shape != hi.shape or lo.dim() == 0 or lo.shape[lane_axis] != WIDTH:
+        want = f"(..., {WIDTH})" if lane_axis == -1 else f"({WIDTH}, ...)"
         raise ValueError(f"limb shapes {tuple(lo.shape)} and {tuple(hi.shape)}"
-                         f": want two equal shapes (..., {WIDTH})")
+                         f": want two equal shapes {want}")
     if not (lo.is_contiguous() and hi.is_contiguous()):
         raise ValueError("limb tensors must be contiguous")
     if lo.device.type != "cuda" or hi.device != lo.device:
@@ -153,7 +156,7 @@ def poseidon2_permute(state: GL) -> GL:
     with torch.cuda.device(lo.device):
         stream = torch.cuda.current_stream(lo.device).cuda_stream
         err = fn(lo.data_ptr(), hi.data_ptr(), out_lo.data_ptr(),
-                 out_hi.data_ptr(), n, _kernel_constants(), stream)
+                 out_hi.data_ptr(), n, stream)
     if err != 0:
         raise RuntimeError(f"poseidon2 kernel launch failed: cudaError {err}")
     poseidon2_permute.launches += 1
@@ -161,3 +164,99 @@ def poseidon2_permute(state: GL) -> GL:
 
 
 poseidon2_permute.launches = 0
+
+
+# ------------------------------------------------------------ lane-major form
+
+
+def _soa_sbox(x: GL) -> GL:
+    """x^7 elementwise (poseidon2_pallas.py:193-196)."""
+    return _sbox(x)
+
+
+def _soa_m4(b):
+    """M4 on a list of four lane arrays (poseidon2_pallas.py:199-208)."""
+    x0, x1, x2, x3 = b
+    t0 = gl.add(x0, x1)
+    t1 = gl.add(x2, x3)
+    t2 = gl.add(t1, gl.double(x1))
+    t3 = gl.add(t0, gl.double(x3))
+    t4 = gl.add(t3, gl.scale_small(t1, 4))
+    t5 = gl.add(t2, gl.scale_small(t0, 4))
+    return [gl.add(t3, t5), t5, gl.add(t2, t4), t4]
+
+
+def _soa_matmul_external(s):
+    """M_E on a list of 12 lane arrays (poseidon2_pallas.py:211-216)."""
+    blocks = [_soa_m4(s[4 * k:4 * k + 4]) for k in range(3)]
+    stored = [gl.add(gl.add(blocks[0][i], blocks[1][i]), blocks[2][i])
+              for i in range(4)]
+    return [gl.add(blocks[k][i], stored[i])
+            for k in range(3) for i in range(4)]
+
+
+def poseidon2_permute_soa_plain(planes: GL) -> GL:
+    """The permutation on lane-major planes (12, ...), in PyTorch ops: the
+    rounds of the Pallas `_soa_kernel` (poseidon2_pallas.py:219-252).  The
+    lane-wise steps (round constants, S-boxes, the internal diagonal) run
+    on the stacked lanes, one op for all 12; M_E runs on the lane list."""
+    if planes.shape[0] != WIDTH:
+        raise ValueError(f"planes shape {planes.shape}: first axis must be "
+                         f"{WIDTH}")
+    rc_ext, rc_mid, diag = _plain_constants(planes.device)
+    col = (WIDTH,) + (1,) * (len(planes.shape) - 1)   # broadcast over lanes
+
+    def lanes(x: GL):
+        return [x[i] for i in range(WIDTH)]
+
+    def ext_round(s, r: int):
+        x = _soa_sbox(gl.add(gl.stack(s), rc_ext[r].reshape(*col)))
+        return _soa_matmul_external(lanes(x))
+
+    s = _soa_matmul_external(lanes(planes))
+    for r in range(ROUND_F_BEGIN):
+        s = ext_round(s, r)
+    for r in range(len(RC_MID)):
+        s = [_soa_sbox(gl.add(s[0], rc_mid[r]))] + s[1:]
+        t = gl.add(gl.add(gl.add(s[0], s[1]), gl.add(s[2], s[3])),
+                   gl.add(gl.add(s[4], s[5]), gl.add(s[6], s[7])))
+        total = gl.add(t, gl.add(gl.add(s[8], s[9]), gl.add(s[10], s[11])))
+        s = lanes(gl.add(gl.mul(gl.stack(s), diag.reshape(*col)), total))
+    for r in range(ROUND_F_BEGIN, ROUND_F_END):
+        s = ext_round(s, r)
+    return gl.stack(s, dim=0)
+
+
+@functools.lru_cache(maxsize=None)
+def soa_kernel_library() -> build.Built:
+    """Build (at first use) and load csrc/poseidon2_soa.cu."""
+    built = build.build("poseidon2_soa")
+    fn = built.lib.p25_poseidon2_permute_soa
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return built
+
+
+def poseidon2_permute_soa(planes: GL) -> GL:
+    """Permute lane-major planes (12, ...): the plain version for CPU
+    tensors, the CUDA kernel csrc/poseidon2_soa.cu for CUDA tensors."""
+    if planes.lo.device.type == "cpu" and planes.hi.device.type == "cpu":
+        return poseidon2_permute_soa_plain(planes)
+    check_kernel_input(planes, lane_axis=0)
+    lo, hi = planes
+    out_lo, out_hi = torch.empty_like(lo), torch.empty_like(hi)
+    n = lo.numel() // WIDTH
+    if n == 0:
+        return GL(out_lo, out_hi)
+    fn = soa_kernel_library().lib.p25_poseidon2_permute_soa
+    with torch.cuda.device(lo.device):
+        stream = torch.cuda.current_stream(lo.device).cuda_stream
+        err = fn(lo.data_ptr(), hi.data_ptr(), out_lo.data_ptr(),
+                 out_hi.data_ptr(), n, stream)
+    if err != 0:
+        raise RuntimeError(f"poseidon2 SoA kernel launch failed: cudaError {err}")
+    poseidon2_permute_soa.launches += 1
+    return GL(out_lo, out_hi)
+
+
+poseidon2_permute_soa.launches = 0

@@ -1,8 +1,12 @@
 """MMCS sponge and Merkle primitives (reference: src/p3/commit.rs), batched
 over leading lane axes; the counterpart of plonky25_tpu/ops/sponge.py.
 
-Every permutation goes through `poseidon2_permute`, so on the card each
-sponge chunk and each path level is one kernel launch over all lanes.
+The verifier's row-major functions (`hash_rows`, `compress`) go through
+`poseidon2_permute`, so on the card each sponge chunk and each path level
+is one kernel launch over all lanes.  The prover's lane-major counterparts
+(`hash_rows_planes`, `compress_planes`) take columns and digest planes with
+the lane axis second to last and go through `poseidon2_permute_soa`: one
+launch per sponge chunk or tree level, whatever the leading axes.
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ import torch
 from ..constants import DIGEST_ELEMS, RATE, WIDTH
 from ..fields import gl
 from ..fields.goldilocks import GL
-from .poseidon2 import poseidon2_permute
+from .poseidon2 import poseidon2_permute, poseidon2_permute_soa
 
 
 def hash_rows(rows: GL) -> GL:
@@ -73,3 +77,40 @@ def verify_batch_single(commit: GL, leaf_rows: GL, index: torch.Tensor,
     siblings (N, D, 4).  Returns ok: bool (N,)."""
     root, _ = merkle_path(hash_rows(leaf_rows), index, siblings, valid)
     return gl.eq(root, gl.broadcast_to(commit, root.shape)).all(dim=-1)
+
+
+def _lanes_first(x: GL) -> GL:
+    """View planes (..., k, n) as (k, ..., n)."""
+    return GL(x.lo.movedim(-2, 0), x.hi.movedim(-2, 0))
+
+
+def _lanes_back(x: GL) -> GL:
+    """View planes (k, ..., n) as (..., k, n)."""
+    return GL(x.lo.movedim(0, -2), x.hi.movedim(0, -2))
+
+
+def hash_rows_planes(cols: GL) -> GL:
+    """`hash_rows` on columns: cols (..., W, N) -> digest planes (..., 4, N),
+    the digest of row i in [..., :, i].  Each sponge state is built
+    lane-leading, (12, ..., N), by one concatenation: the layout the kernel
+    takes, with the leading axes folded into its N."""
+    rows = _lanes_first(cols)                                  # (W, ..., N)
+    state = None
+    for off in range(0, rows.shape[0], RATE):
+        k = min(RATE, rows.shape[0] - off)
+        tail = (gl.zeros((WIDTH - k, *rows.shape[1:]), cols.device)
+                if state is None else state[k:])
+        state = poseidon2_permute_soa(
+            gl.concatenate([rows[off:off + k], tail]))
+    return _lanes_back(state[:DIGEST_ELEMS])
+
+
+def compress_planes(left: GL, right: GL) -> GL:
+    """`compress` on digest planes: left/right (..., 4, n) -> (..., 4, n).
+    The state is built lane-leading by one concatenation into a fresh
+    tensor, so strided views (a tree level's even and odd nodes) are fine
+    as inputs."""
+    zeros = gl.zeros((WIDTH - 2 * DIGEST_ELEMS, *left.shape[:-2],
+                      left.shape[-1]), left.device)
+    state = gl.concatenate([_lanes_first(left), _lanes_first(right), zeros])
+    return _lanes_back(poseidon2_permute_soa(state)[:DIGEST_ELEMS])

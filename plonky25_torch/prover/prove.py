@@ -1,0 +1,500 @@
+"""Plonky3-compatible STARK prover on PyTorch tensors; the counterpart of
+plonky25_tpu/prover/prove.py (TpuProver, prove_on_device).
+
+Proofs are bit-identical to the JAX package's and the int oracle's
+(plonky25_tpu/refimpl/prover.py).  The stages are those of TpuProver:
+
+  * `_commit_trace_fn`: the trace's coset LDE in bit-reversed order, kept
+    as columns (B, W, N), the layout the lane-major Merkle trees take;
+  * `_quotient_fn`: the AIR's constraint fold over the quotient coset,
+    divided by the vanishing polynomial;
+  * `_commit_chunks_fn`: the quotient chunks' LDEs as base columns;
+  * `_opened_fn`: openings at zeta and zeta * g (barycentric);
+  * `_ro_fn`: the FRI input, the reduced openings at every LDE point;
+  * `_fold_phase_raw`: one FRI commit phase (sibling rows, fold step);
+  * `_grind_fn`: one window of 2^16 proof-of-work witnesses.
+
+Every stage takes a leading proof axis B: one proof is a batch of one, and
+`batch_prove.BatchProver` runs the same stages on B traces in lockstep.
+Every Merkle tree level and grind window is one launch of the lane-major
+Poseidon2 kernel over the whole batch; every transcript duplex is one
+launch of the state-major kernel.  Tables that depend only on the shape
+(selectors, coset points, fold twiddles and their inverses) are built on
+the device and cached per prover instance.  The transcript stays on the
+device until the grind's first `found` check, and the proof is assembled
+from one device-to-host copy.
+
+Not ported here: the JAX prover's multi-stage (stage-2) branches, its
+column chunking, quotient column groups and strided quotient segmentation
+for S > 1, the column slabs of the opened-value and reduced-opening stages
+(memory strategies for 2633-column AIRs), `lde_mesh` and `warmup`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from ..air import Air, VerifierConstraintFolder, check_multistage_consistency
+from ..constants import EXT_DEGREE, GOLDILOCKS_P as P
+from ..device import resolve_device
+from ..fields import gl, gl2
+from ..fields.extension import GL2, Ops
+from ..fields.goldilocks import GL
+from ..ops.mmcs import DeviceMerkleTree
+from ..ops.ntt import (_bitrev, barycentric_eval_ext, coset_lde_pair,
+                       coset_lde_to_rev, coset_points, powers)
+from ..ops.poseidon2 import poseidon2_permute_soa
+from ..proof import (
+    BatchOpening,
+    Commitment,
+    Commitments,
+    CommitPhaseProofStep,
+    FriConfig,
+    FriProof,
+    OpenedValues,
+    Proof,
+    QueryProof,
+    TwoAdicFriPcsProof,
+)
+from ..refimpl.field import Gl
+from ..utils.bits import log2_ceil, log2_strict, reverse_bits_len_u32
+from ..verifier import _publics
+from .device_challenger import DeviceChallenger
+
+GRIND_WINDOW = 1 << 16
+
+
+class _Main:
+    """The folder's view of the trace at the quotient points."""
+
+    def __init__(self, trace_local, trace_next):
+        self.trace_local = trace_local
+        self.trace_next = trace_next
+        self.quotient_chunks = []
+
+
+class TorchProver:
+    """Shape-specialized prover for single-stage GF(p^2) AIRs; tables are
+    cached per instance."""
+
+    def __init__(self, air: Air, log_n: int, fri_config: FriConfig,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        check_multistage_consistency(air)
+        if air.stage2_width() or air.num_challenges():
+            raise NotImplementedError("multi-stage AIRs are not ported")
+        self.air = air
+        self.log_n = log_n
+        self.fc = fri_config
+        self.width = air.width()
+        self.lqd = log2_ceil(getattr(air, "quotient_degree", lambda: 1)())
+        self.n_chunks = 1 << self.lqd
+        self.q_log_n = log_n + self.lqd
+        self.log_max = log_n + fri_config.log_blowup
+        if self.log_max > 32:
+            raise ValueError("query indices beyond 32 bits are unsupported")
+        self.g_t = Gl.two_adic_generator(log_n)
+        self.g_q = Gl.two_adic_generator(self.q_log_n)
+        self.chunk_shifts = [7 * pow(self.g_q, ci, P) % P
+                             for ci in range(self.n_chunks)]
+        self._selectors = None
+        self._ro_xs = None
+        self._fold_cache: Dict = {}
+
+    # ------------------------------------------------------------ tables
+    def selectors(self):
+        """(is_first, is_last, is_transition, 1/Z_H) on the quotient coset
+        7 * <g_q> (two_adic.rs:92-122; trace domain shift 1), GL (q,)."""
+        if self._selectors is None:
+            dev = self.device
+            q_size = 1 << self.q_log_n
+            xs = coset_points(self.q_log_n, 7, dev)
+            zh = gl.sub(gl.pow_const(xs, 1 << self.log_n), gl.ones((q_size,), dev))
+            d_first = gl.sub(xs, gl.ones((q_size,), dev))
+            d_last = gl.sub(xs, gl.full((q_size,), Gl.inv(self.g_t), dev))
+            invs = gl.inv(gl.stack([d_first, d_last, zh]))    # one inversion
+            self._selectors = (gl.mul(zh, invs[0]), gl.mul(zh, invs[1]),
+                               d_last, invs[2])
+        return self._selectors
+
+    def ro_points(self) -> GL:
+        """7 * g^rev(i) at the LDE's bit-reversed positions, GL (N,)."""
+        if self._ro_xs is None:
+            self._ro_xs = coset_points(self.log_max, 7, self.device)[
+                _bitrev(self.log_max, self.device)]
+        return self._ro_xs
+
+    # ------------------------------------------------------------ stages
+    def _commit_trace_fn(self, cols: GL) -> GL:
+        """cols (B, W, H) on <g_H> -> the LDE on 7 * <g_N>, bit-reversed,
+        as columns (B, W, N)."""
+        return coset_lde_to_rev(cols, 1, self.log_max - self.log_n)
+
+    def _quotient_fn(self, cols: GL, alpha: GL2) -> GL2:
+        """Constraint fold over the quotient coset divided by Z_H: cols
+        (B, W, H), alpha (B,) -> quotient evaluations GL2 (B, q)."""
+        q_size = 1 << self.q_log_n
+        is_first, is_last, is_trans, inv_zh = self.selectors()
+        locals_ = coset_lde_pair(cols, 1, self.q_log_n - self.log_n)
+        # the next row on the quotient coset is a rotation of the locals:
+        # g_t * 7 * g_q^j = 7 * g_q^(j + 2^lqd)
+        nexts = GL(torch.roll(locals_.lo, -self.n_chunks, -1),
+                   torch.roll(locals_.hi, -self.n_chunks, -1))
+        main = _Main(
+            [gl2.from_base(locals_[:, i]) for i in range(self.width)],
+            [gl2.from_base(nexts[:, i]) for i in range(self.width)])
+        folder = VerifierConstraintFolder(
+            ops=Ops((cols.shape[0], q_size), self.device),
+            main=main,
+            is_first_row=gl2.from_base(is_first),
+            is_last_row=gl2.from_base(is_last),
+            is_transition=gl2.from_base(is_trans),
+            alpha=alpha[:, None],
+            publics=_publics(self.air, self.device),
+        )
+        self.air.eval(folder)
+        return gl2.mul_base(folder.accumulator, inv_zh)
+
+    def _commit_chunks_fn(self, q_evals: GL2) -> GL:
+        """Split the quotient evaluations (B, q) into chunks and LDE each as
+        EXT_DEGREE base columns: (B, n_chunks * D, 2^l), bit-reversed."""
+        l = self.q_log_n - self.lqd + self.fc.log_blowup
+        outs = []
+        for ci in range(self.n_chunks):
+            ev = q_evals[..., ci::self.n_chunks]
+            cols = gl.stack([ev.c0, ev.c1], dim=-2)          # (B, D, q/ch)
+            blow = l - log2_strict(cols.shape[-1])
+            outs.append(coset_lde_to_rev(cols, self.chunk_shifts[ci], blow))
+        return gl.concatenate(outs, dim=-2)
+
+    def _fold_phase_raw(self, log_folded: int):
+        """(rows_fn, step_fn) of the FRI commit phase folding 2m -> m
+        values, m = 2^log_folded, with the phase's x0 and 1/(-2 x0) tables
+        built once per instance."""
+        if log_folded not in self._fold_cache:
+            m = 1 << log_folded
+            dev = self.device
+            g_cur = Gl.two_adic_generator(log_folded + 1)
+            e = reverse_bits_len_u32(
+                2 * torch.arange(m, dtype=torch.int64, device=dev),
+                log_folded + 1)
+            x0 = powers(g_cur, 2 * m, dev)[e]
+            den_inv = gl.inv(gl.neg(gl.double(x0)))
+
+            def rows_fn(u: GL2):
+                e0, e1 = u[..., 0::2], u[..., 1::2]
+                rows = gl.stack([e0.c0, e0.c1, e1.c0, e1.c1], dim=-2)
+                return rows, e0, e1                           # (B, 4, m)
+
+            def step_fn(e0: GL2, e1: GL2, beta: GL2) -> GL2:
+                num = gl2.mul(gl2.sub(e1, e0), gl2.sub_base(beta[..., None], x0))
+                return gl2.add(e0, gl2.mul_base(num, den_inv))
+
+            self._fold_cache[log_folded] = (rows_fn, step_fn, x0, den_inv)
+        return self._fold_cache[log_folded][:2]
+
+    def _opened_fn(self, cols: GL, q_evals: GL2, zeta: GL2):
+        """Opened values: the trace at zeta and zeta * g (B, W) and the
+        quotient chunks at zeta (B, n_chunks, D)."""
+        zeta_next = gl2.mul_base(zeta, gl.full((), self.g_t, self.device))
+        tl = barycentric_eval_ext(cols, 1, zeta)
+        tn = barycentric_eval_ext(cols, 1, zeta_next)
+        qc = []
+        for ci in range(self.n_chunks):
+            ev = q_evals[..., ci::self.n_chunks]
+            qc.append(barycentric_eval_ext(gl.stack([ev.c0, ev.c1], dim=-2),
+                                           self.chunk_shifts[ci], zeta))
+        return tl, tn, gl2.stack(qc, dim=-2)
+
+    def _ro_fn(self, trace_lde: GL, q_lde: GL, tl: GL2, tn: GL2, qc: GL2,
+               zeta: GL2, alpha_fri: GL2) -> GL2:
+        """FRI input at the LDE points (B, N), bit-reversed order, grouped
+        as the verifier's reduced openings: for each (matrix, point)
+        group, sum_c alpha^k (p_c(x) - p_c(z)) / (x - z)."""
+        xs = self.ro_points()
+        zeta_next = gl2.mul_base(zeta, gl.full((), self.g_t, self.device))
+        w = self.width
+        pw = [gl2.ones(alpha_fri.shape, self.device)]
+        for _ in range(1, 2 * w + self.n_chunks * EXT_DEGREE):
+            pw.append(gl2.mul(pw[-1], alpha_fri))
+        pow_stack = gl2.stack(pw, dim=-1)                     # (B, T)
+        qc_flat = qc.reshape(qc.shape[0], -1)
+        groups = [(trace_lde, tl, zeta, 0), (trace_lde, tn, zeta_next, w),
+                  (q_lde, qc_flat, zeta, 2 * w)]
+        sums, dens = [], []
+        for p_at_x, p_at_z, z, k0 in groups:
+            c = p_at_x.shape[-2]
+            coef = pow_stack[..., k0:k0 + c, None]            # (B, C, 1)
+            num = gl2.add_base(gl2.neg(p_at_z)[..., None], p_at_x)
+            weighted = gl2.mul(coef, num)                     # (B, C, N)
+            acc = weighted[..., 0, :]
+            for i in range(1, c):
+                acc = gl2.add(acc, weighted[..., i, :])
+            sums.append(acc)
+            dens.append(gl2.broadcast_to(
+                gl2.add_base(gl2.neg(z)[..., None], xs), acc.shape))
+        inv_dens = gl2.inv(gl2.stack(dens))                   # one inversion
+        ro = gl2.mul(sums[0], inv_dens[0])
+        for g in range(1, len(groups)):
+            ro = gl2.add(ro, gl2.mul(sums[g], inv_dens[g]))
+        return ro
+
+    def _grind_fn(self, state_rest: GL, base: int):
+        """Try the witnesses [base, base + 2^16) for every proof of the
+        batch in one lane-major launch: state_rest (B, 11) -> (found (B,),
+        first offset (B,)) for the first w whose permute([w, rest]) has
+        lane 11's low proof_of_work_bits zero."""
+        b = state_rest.shape[0]
+        dev = self.device
+        win = (1, b, GRIND_WINDOW)
+        w_lo = torch.arange(base, base + GRIND_WINDOW, dtype=torch.int64,
+                            device=dev).expand(win)
+        # witnesses < 2^32: lane 0's hi limb is zero
+        lo = torch.cat([w_lo, state_rest.lo.T[:, :, None].expand(11, *win[1:])])
+        hi = torch.cat([torch.zeros(win, dtype=torch.int64, device=dev),
+                        state_rest.hi.T[:, :, None].expand(11, *win[1:])])
+        out = poseidon2_permute_soa(GL(lo, hi))              # (12, B, 2^16)
+        bits = self.fc.proof_of_work_bits
+        ok = (out.lo[11] & ((1 << min(bits, 32)) - 1)) == 0
+        if bits > 32:
+            ok &= (out.hi[11] & ((1 << (bits - 32)) - 1)) == 0
+        return ok.any(-1), ok.to(torch.uint8).argmax(-1)
+
+    # ------------------------------------------------------------ prove
+    def prove(self, trace, on_stage=None) -> Proof:
+        """Prove one row-major trace (H rows of W host ints, or an
+        (H, W) integer array)."""
+        return self.prove_columns(trace_columns([trace], self.device),
+                                  on_stage)[0]
+
+    def prove_columns(self, cols: GL, on_stage=None) -> List[Proof]:
+        """Prove the traces cols (B, W, H) in lockstep -> B proofs.
+        `on_stage(name)` is called after each stage is enqueued (the
+        hook the chip run times stages with)."""
+        mark = on_stage or (lambda name: None)
+        fc = self.fc
+        b = cols.shape[0]
+        if cols.shape[1:] != (self.width, 1 << self.log_n):
+            raise ValueError(f"trace columns {cols.shape}: want (B, "
+                             f"{self.width}, {1 << self.log_n})")
+        ch = DeviceChallenger((b,), self.device)
+
+        trace_lde = self._commit_trace_fn(cols)                # (B, W, N)
+        trace_tree = DeviceMerkleTree(trace_lde)
+        ch.observe_many(trace_tree.root)
+        alpha = ch.sample_ext()
+        mark("commit_trace")
+
+        q_evals = self._quotient_fn(cols, alpha)               # (B, q)
+        mark("quotient")
+        q_lde = self._commit_chunks_fn(q_evals)
+        q_tree = DeviceMerkleTree(q_lde)
+        ch.observe_many(q_tree.root)
+        zeta = ch.sample_ext()
+        mark("commit_quotient")
+
+        tl, tn, qc = self._opened_fn(cols, q_evals, zeta)
+        mark("opened")
+        alpha_fri = ch.sample_ext()
+        u = self._ro_fn(trace_lde, q_lde, tl, tn, qc, zeta, alpha_fri)
+        mark("reduced_openings")
+
+        phase_trees, phase_vectors = [], []
+        for log_folded in range(self.log_max - 1, fc.log_blowup - 1, -1):
+            rows_fn, step_fn = self._fold_phase_raw(log_folded)
+            rows, e0, e1 = rows_fn(u)
+            tree = DeviceMerkleTree(rows)
+            phase_trees.append(tree)
+            phase_vectors.append(u)
+            ch.observe_many(tree.root)
+            u = step_fn(e0, e1, ch.sample_ext())
+        low_degree_ok = gl2.eq(u, u[..., :1]).all()
+        mark("fri_commit")
+
+        # PoW grind: shared ascending windows, each proof's first hit (the
+        # witness order of the sequential grind).  bool(found.all()) is
+        # the proof's first device-to-host wait.
+        if ch.input_buffer:
+            raise AssertionError("observations pending before the grind")
+        state_rest = ch.state[..., 1:12]
+        found = torch.zeros(b, dtype=torch.bool, device=self.device)
+        wit = torch.zeros(b, dtype=torch.int64, device=self.device)
+        base = 0
+        while True:
+            f, off = self._grind_fn(state_rest, base)
+            wit = torch.where(f & ~found, base + off, wit)
+            found |= f
+            if bool(found.all()):
+                break
+            base += GRIND_WINDOW
+            if base >= 1 << 32:
+                raise RuntimeError("no proof-of-work witness below 2^32")
+        ch.observe(GL(wit, torch.zeros_like(wit)))
+        pow_ok = (ch.sample_bits(fc.proof_of_work_bits) == 0).all()
+        mark("grind")
+
+        qidx = ch.sample_many_bits(fc.num_queries, self.log_max)   # (B, Q)
+        pulls = {
+            "pow_ok": pow_ok, "low_degree_ok": low_degree_ok, "wit": wit,
+            "trace_root": trace_tree.root, "q_root": q_tree.root,
+            "phase_roots": [t.root for t in phase_trees],
+            "tl": tl, "tn": tn, "qc": qc, "final": u[..., 0],
+            "trace_open": _gather_cols(trace_lde, qidx),
+            "q_open": _gather_cols(q_lde, qidx),
+            "trace_paths": trace_tree.open_paths(qidx),
+            "q_paths": q_tree.open_paths(qidx),
+            "fold_sibs": [], "fold_paths": [],
+        }
+        idx = qidx
+        for vec, tree in zip(phase_vectors, phase_trees):
+            pulls["fold_sibs"].append(GL2(_gather_last(vec.c0, idx ^ 1),
+                                          _gather_last(vec.c1, idx ^ 1)))
+            pulls["fold_paths"].append(tree.open_paths(idx >> 1))
+            idx = idx >> 1
+        host = _pull(pulls)
+        if not host["pow_ok"]:
+            raise AssertionError("PoW self-check failed")
+        if not host["low_degree_ok"]:
+            raise AssertionError("FRI input not low-degree")
+        proofs = [self._assemble(host, i) for i in range(b)]
+        mark("queries")
+        return proofs
+
+    def _assemble(self, h: Dict, b: int) -> Proof:
+        """Proof b of the batch from the pulled host arrays."""
+        D = EXT_DEGREE
+
+        def ext_list(pair, *ix):
+            return list(zip(pair[0][(b, *ix)].tolist(),
+                            pair[1][(b, *ix)].tolist()))
+
+        trace_open = h["trace_open"][b].tolist()               # (Q, W)
+        q_open = h["q_open"][b].tolist()                       # (Q, ch*D)
+        trace_paths = h["trace_paths"][b].tolist()             # (Q, d, 4)
+        q_paths = h["q_paths"][b].tolist()
+        fold_sibs = [(s[0][b].tolist(), s[1][b].tolist())
+                     for s in h["fold_sibs"]]
+        fold_paths = [p[b].tolist() for p in h["fold_paths"]]
+        query_openings, query_proofs = [], []
+        for qi in range(self.fc.num_queries):
+            query_openings.append([
+                BatchOpening(opened_values=[trace_open[qi]],
+                             opening_proof=trace_paths[qi]),
+                BatchOpening(opened_values=[q_open[qi][ci * D:(ci + 1) * D]
+                                            for ci in range(self.n_chunks)],
+                             opening_proof=q_paths[qi]),
+            ])
+            query_proofs.append(QueryProof(commit_phase_openings=[
+                CommitPhaseProofStep(
+                    sibling_value=(fold_sibs[l][0][qi], fold_sibs[l][1][qi]),
+                    opening_proof=fold_paths[l][qi])
+                for l in range(len(fold_paths))]))
+        return Proof(
+            commitments=Commitments(
+                trace=Commitment(value=h["trace_root"][b].tolist()),
+                quotient_chunks=Commitment(value=h["q_root"][b].tolist())),
+            opened_values=OpenedValues(
+                trace_local=ext_list(h["tl"]),
+                trace_next=ext_list(h["tn"]),
+                quotient_chunks=[ext_list(h["qc"], ci)
+                                 for ci in range(self.n_chunks)]),
+            opening_proof=TwoAdicFriPcsProof(
+                fri_proof=FriProof(
+                    commit_phase_commits=[Commitment(value=r[b].tolist())
+                                          for r in h["phase_roots"]],
+                    query_proofs=query_proofs,
+                    final_poly=(int(h["final"][0][b]), int(h["final"][1][b])),
+                    pow_witness=int(h["wit"][b])),
+                query_openings=query_openings),
+            degree_bits=self.log_n,
+        )
+
+
+def _gather_last(x: GL, idx: torch.Tensor) -> GL:
+    """x (B, n), idx (B, Q) -> x[b, idx[b, q]] (B, Q)."""
+    return GL(torch.gather(x.lo, -1, idx), torch.gather(x.hi, -1, idx))
+
+
+def _gather_cols(m: GL, idx: torch.Tensor) -> GL:
+    """Rows idx (B, Q) of the column-major matrices m (B, C, N): (B, Q, C)."""
+    ix = idx[:, None, :].expand(m.shape[0], m.shape[1], idx.shape[-1])
+    return GL(torch.gather(m.lo, -1, ix).transpose(1, 2),
+              torch.gather(m.hi, -1, ix).transpose(1, 2))
+
+
+def _pull(values: Dict) -> Dict:
+    """Copy GL / GL2 / tensor values (and lists of them) to the host in one
+    transfer: GL -> uint64 array, GL2 -> (c0, c1) uint64 arrays, a tensor ->
+    a numpy array (a 0-d bool -> bool)."""
+    flat = []
+
+    def collect(x):
+        if isinstance(x, list):
+            return [collect(v) for v in x]
+        if isinstance(x, GL2):
+            return GL2(collect(x.c0), collect(x.c1))
+        if isinstance(x, GL):
+            return GL(collect(x.lo), collect(x.hi))
+        flat.append(x.reshape(-1).to(torch.int64))
+        return (len(flat) - 1, tuple(x.shape), x.dtype)
+
+    layout = {k: collect(v) for k, v in values.items()}
+    host = torch.cat(flat).cpu().numpy()
+    offsets = np.cumsum([0] + [t.numel() for t in flat])
+
+    def rebuild(x):
+        if isinstance(x, list):
+            return [rebuild(v) for v in x]
+        if isinstance(x, GL2):
+            return (rebuild(x.c0), rebuild(x.c1))
+        if isinstance(x, GL):
+            lo, hi = rebuild(x.lo), rebuild(x.hi)
+            return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+        i, shape, dtype = x
+        a = host[offsets[i]:offsets[i + 1]].reshape(shape)
+        return bool(a) if dtype == torch.bool and not shape else a
+
+    return {k: rebuild(v) for k, v in layout.items()}
+
+
+def trace_columns(traces, device) -> GL:
+    """Row-major traces (B of them, H rows of W values each: host ints or
+    integer arrays) -> columns GL (B, W, H) on `device`."""
+    try:
+        a = np.asarray(traces, dtype=np.uint64)
+    except (OverflowError, TypeError, ValueError):
+        a = np.asarray(traces, dtype=object)     # exact, reduced mod p
+    if a.ndim != 3:
+        raise ValueError(f"traces of shape {a.shape}: want (B, H, W)")
+    return gl.from_u64(np.ascontiguousarray(a.transpose(0, 2, 1)), device)
+
+
+_prover_cache: Dict = {}
+
+
+def get_prover(air: Air, log_n: int, fri_config: FriConfig,
+               device="cuda") -> TorchProver:
+    """A cached TorchProver for (AIR class, shape, FRI config, device); a
+    cache hit takes the caller's `air` (its publics)."""
+    device = resolve_device(device)
+    key = (type(air).__module__, type(air).__qualname__, air.name(),
+           air.width(), log_n, fri_config.log_blowup, fri_config.num_queries,
+           fri_config.proof_of_work_bits, str(device))
+    p = _prover_cache.get(key)
+    if p is None:
+        p = TorchProver(air, log_n, fri_config, device)
+        _prover_cache[key] = p
+    else:
+        p.air = air
+    return p
+
+
+def prove(air: Air, trace, fri_config: FriConfig, device="cuda",
+          on_stage=None) -> Proof:
+    """Prove one row-major trace on `device` (the counterpart of
+    prove_on_device)."""
+    return get_prover(air, log2_strict(len(trace)), fri_config,
+                      device).prove(trace, on_stage)

@@ -10,7 +10,15 @@ Writes, into tests/fixtures/:
       reference's Rust artifact;
   proof_fibonacci_expected.json  what the JAX package (on the CPU) and its
       int oracle derive from that proof: alpha, zeta, the FRI betas, the
-      query indices and the verdict fields, plus Poseidon2 known answers.
+      query indices and the verdict fields, plus Poseidon2 known answers;
+  proof_fibonacci8192_expected.json  the pure-int prover's fib(2^13) proof
+      at the same FriConfig (its LDE has 2^14 points, the JAX package's
+      six-step threshold), held by its digest: the sha256 of its compact
+      JSON, the trace, quotient and FRI phase commitments, alpha, zeta, the
+      PoW witness and the query indices (tests/test_tpu_prover.py and
+      tests/test_refimpl_prover.py hold the JAX device prover and the
+      pure-int one byte-equal).  Proving fib(2^13) in pure Python took
+      176 s of the script's 263 s on the CPU (PoW grind included).
 
 `chip_smoke.py` and the port's tests read these files, so the port can be
 checked on a machine without JAX.  This script may import plonky25_tpu; the
@@ -19,6 +27,7 @@ port never does.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import random
@@ -100,7 +109,30 @@ def main():
     exp_path = os.path.join(OUT, "proof_fibonacci_expected.json")
     with open(exp_path, "w") as f:
         json.dump(expected, f, indent=1)
-    for path in (proof_path, exp_path):
+    t1 = time.time()
+    big = prove(air, fibonacci_trace(1 << 13), FC)
+    big_text = json.dumps(proof_to_json(big), separators=(",", ":"))
+    ref_big = ref_verify(big, air, FC)
+    assert ref_big.ok
+    fp = big.opening_proof.fri_proof
+    expected_8192 = {
+        "height": 1 << 13,
+        "fri_config": expected["fri_config"],
+        "bytes": len(big_text),
+        "sha256": hashlib.sha256(big_text.encode()).hexdigest(),
+        "trace_commit": big.commitments.trace.value,
+        "quotient_commit": big.commitments.quotient_chunks.value,
+        "phase_commits": [c.value for c in fp.commit_phase_commits],
+        "alpha": list(ref_big.alpha),
+        "zeta": list(ref_big.zeta),
+        "pow_witness": fp.pow_witness,
+        "query_indices": ref_big.query_indices,
+    }
+    big_path = os.path.join(OUT, "proof_fibonacci8192_expected.json")
+    with open(big_path, "w") as f:
+        json.dump(expected_8192, f, indent=1)
+    print(f"fib(2^13) took {time.time() - t1:.1f} s")
+    for path in (proof_path, exp_path, big_path):
         print(f"wrote {os.path.relpath(path, ROOT)} "
               f"({os.path.getsize(path)} bytes)")
     print(f"took {time.time() - t0:.1f} s")

@@ -1,5 +1,6 @@
-"""The port's Poseidon2 (plonky25_torch.ops.poseidon2) against the JAX
-package's jnp permutation and the int oracle, bit for bit.
+"""The port's Poseidon2 (plonky25_torch.ops.poseidon2), state-major and
+lane-major, against the JAX package's jnp permutation, its lane-major
+helpers and the int oracle, bit for bit.
 
 The JAX jnp path is the one the Pallas kernel is held bit-equal to (the
 Pallas kernel's own interpret-mode run is skipped on the CPU,
@@ -98,13 +99,26 @@ def test_kernel_input_check_rejects(bad, exc):
         tp2.check_kernel_input(state)
 
 
-def test_kernel_constants_are_the_reduced_tables():
-    from plonky25_torch.constants import MAT_DIAG_M_1, RC, RC_MID
+def _csrc(name):
+    import os
 
-    words = list(tp2._kernel_constants())
-    want = [v % P for row in RC for v in row] + [v % P for v in RC_MID]
-    want += [(d - 1) % P for d in MAT_DIAG_M_1]
-    assert words == want and len(words) == 8 * 12 + 22 + 12
+    path = os.path.join(os.path.dirname(tp2.__file__), os.pardir, "csrc", name)
+    with open(path) as f:
+        return f.read()
+
+
+def test_kernel_constants_are_the_reduced_tables():
+    """Both kernels run the rounds of poseidon2_common.cuh, whose constants
+    come from poseidon2_constants.cuh (held to constants.py below): no
+    kernel source carries a constant table or parameter of its own."""
+    import re
+
+    assert '#include "poseidon2_constants.cuh"' in _csrc("poseidon2_common.cuh")
+    for name in ("poseidon2.cu", "poseidon2_soa.cu"):
+        src = _csrc(name)
+        assert '#include "poseidon2_common.cuh"' in src, name
+        assert "p25::permute(s);" in src, name
+        assert not re.search(r"0x[0-9A-Fa-f]{9,}", src), name
 
 
 @pytest.mark.cuda
@@ -119,3 +133,123 @@ def test_kernel_matches_plain_on_gpu():
         torch.cuda.synchronize()
         assert tp2.poseidon2_permute.launches == before + 1
         assert torch.equal(out.lo, want.lo) and torch.equal(out.hi, want.hi)
+
+
+# ------------------------------------------------------------ lane-major form
+
+
+@pytest.fixture(scope="module")
+def soa_ref():
+    """The JAX package's lane-major helpers (the Pallas `_soa_kernel`'s
+    building blocks), called directly."""
+    from plonky25_tpu.fields import gl
+    from plonky25_tpu.ops.pallas import poseidon2_pallas as pp
+
+    return types.SimpleNamespace(gl=gl, sbox=pp._soa_sbox, m4=pp._soa_m4,
+                                 matmul_external=pp._soa_matmul_external)
+
+
+def _lanes(n, seed, k):
+    """k lane arrays of n seeded values, as numpy (k, n)."""
+    return np.random.default_rng(seed).integers(0, P, size=(k, n),
+                                                dtype=np.uint64)
+
+
+@pytest.mark.parametrize("n", [1, 5, 257])
+def test_soa_plain_matches_jax(ref, n):
+    """`poseidon2_permute_pallas_soa` is bit-identical to the JAX
+    `poseidon2_permute` (its interpret-mode run is too slow on the CPU,
+    tests/test_pallas.py), so the lane-major plain version is held to it."""
+    s = _states(n, 100 + n)
+    out = tp2.poseidon2_permute_soa_plain(tgl.from_u64(s.T.copy(), "cpu"))
+    want = _rows(ref.gl.to_u64(ref.permute(ref.gl.from_u64(s))))
+    assert _rows(tgl.to_u64(out).T) == want
+
+
+def test_soa_plain_on_edge_states_matches_oracle(ref):
+    s = _edge_states()
+    out = tp2.poseidon2_permute_soa_plain(tgl.from_u64(s.T.copy(), "cpu"))
+    assert _rows(tgl.to_u64(out).T) == [ref.oracle([int(v) for v in row])
+                                         for row in s]
+
+
+def test_soa_plain_keeps_trailing_axes():
+    s = _states(2 * 3, 4).T.copy().reshape(12, 2, 3)
+    out = tp2.poseidon2_permute_soa_plain(tgl.from_u64(s, "cpu"))
+    flat = tp2.poseidon2_permute_soa_plain(tgl.from_u64(s.reshape(12, 6), "cpu"))
+    assert out.shape == (12, 2, 3)
+    assert tgl.to_u64(out).reshape(12, 6).tolist() == tgl.to_u64(flat).tolist()
+
+
+@pytest.mark.parametrize("helper", ["sbox", "m4", "matmul_external"])
+def test_soa_helpers_match_jax_twins(soa_ref, helper):
+    k = {"sbox": 1, "m4": 4, "matmul_external": 12}[helper]
+    a = _lanes(33, 7 + k, k)
+    ours = [tgl.from_u64(a[i], "cpu") for i in range(k)]
+    theirs = [soa_ref.gl.from_u64(a[i]) for i in range(k)]
+    if helper == "sbox":
+        got, want = [tp2._soa_sbox(ours[0])], [soa_ref.sbox(theirs[0])]
+    else:
+        got = getattr(tp2, f"_soa_{helper}")(ours)
+        want = getattr(soa_ref, helper)(theirs)
+    assert [tgl.to_u64(x).tolist() for x in got] == [
+        np.asarray(soa_ref.gl.to_u64(x), dtype=object).tolist() for x in want]
+
+
+def test_soa_wrapper_runs_plain_on_cpu_tensors_without_counting():
+    s = tgl.from_u64(_states(3, 8).T.copy(), "cpu")
+    before = tp2.poseidon2_permute_soa.launches
+    out = tp2.poseidon2_permute_soa(s)
+    assert tp2.poseidon2_permute_soa.launches == before
+    assert tgl.to_u64(out).tolist() == \
+        tgl.to_u64(tp2.poseidon2_permute_soa_plain(s)).tolist()
+
+
+@pytest.mark.parametrize("bad, exc", [
+    ("int32", TypeError), ("width", ValueError), ("strided", ValueError),
+    ("shapes", ValueError), ("cpu", ValueError)])
+def test_soa_kernel_input_check_rejects(bad, exc):
+    lo = torch.zeros(12, 4, dtype=torch.int64)
+    planes = {
+        "int32": tgl.GL(lo.int(), lo.int()),
+        "width": tgl.GL(lo[:8], lo[:8].clone()),
+        "strided": tgl.GL(torch.zeros(4, 12, dtype=torch.int64).T, lo),
+        "shapes": tgl.GL(lo, lo[:, :2]),
+        "cpu": tgl.GL(lo, lo),
+    }[bad]
+    with pytest.raises(exc):
+        tp2.check_kernel_input(planes, lane_axis=0)
+
+
+def test_constants_header_matches_constants():
+    """csrc/poseidon2_constants.cuh holds constants.py's tables, reduced."""
+    import re
+
+    from plonky25_torch.constants import MAT_DIAG_M_1, RC, RC_MID
+
+    src = _csrc("poseidon2_constants.cuh")
+
+    def table(name):
+        body = re.search(name + r"\[[^=]*=\s*\{(.*?)\};", src, re.S).group(1)
+        return [int(v, 16) for v in re.findall(r"0x([0-9A-F]{16})ull", body)]
+
+    assert table("kRC") == [v % P for row in RC for v in row]
+    assert table("kRCMid") == [v % P for v in RC_MID]
+    assert table("kDiag") == [(d - 1) % P for d in MAT_DIAG_M_1]
+
+
+@pytest.mark.cuda
+def test_soa_kernel_matches_plain_and_state_major_kernel_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    for n in (1, 255, 257, 100_003):
+        s = tgl.from_u64(_states(n, n).T.copy(), "cuda")
+        before = tp2.poseidon2_permute_soa.launches
+        out = tp2.poseidon2_permute_soa(s)
+        want = tp2.poseidon2_permute_soa_plain(s)
+        aos = tp2.poseidon2_permute(tgl.GL(s.lo.T.contiguous(),
+                                           s.hi.T.contiguous()))
+        torch.cuda.synchronize()
+        assert tp2.poseidon2_permute_soa.launches == before + 1
+        assert torch.equal(out.lo, want.lo) and torch.equal(out.hi, want.hi)
+        assert torch.equal(out.lo, aos.lo.T) and torch.equal(out.hi, aos.hi.T)

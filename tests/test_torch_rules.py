@@ -63,16 +63,20 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         pytest.skip("checks the refusal on a machine without a GPU")
     from plonky25_torch import FriConfig, derive_config, load_proof
     from plonky25_torch import get_verifier, verify_proof
-    from plonky25_torch.convert import from_jax_witness
+    from plonky25_torch.convert import from_jax
     from plonky25_torch.models import FibonacciAir
     from plonky25_torch.ops import poseidon2
+    from plonky25_torch.models.fibonacci import fibonacci_trace
     from plonky25_torch.parallel import BatchVerifier
+    from plonky25_torch.prover import (BatchProver, TorchProver, prove,
+                                       prove_batch_on_device)
     from plonky25_torch.witness import pack_witness
 
     def no_cpu_work(state):
         raise AssertionError("ran on the CPU without being asked")
 
     monkeypatch.setattr(poseidon2, "poseidon2_permute_plain", no_cpu_work)
+    monkeypatch.setattr(poseidon2, "poseidon2_permute_soa_plain", no_cpu_work)
     proof = load_proof(FIXTURE)
     fc = FriConfig(1, 100, 16)
     cfg = derive_config(proof, fc)
@@ -80,7 +84,12 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
                  lambda: get_verifier(FibonacciAir(), cfg),
                  lambda: BatchVerifier(FibonacciAir(), cfg),
                  lambda: pack_witness(proof, cfg),
-                 lambda: from_jax_witness({})):
+                 lambda: from_jax({}),
+                 lambda: prove(FibonacciAir(), fibonacci_trace(16), fc),
+                 lambda: TorchProver(FibonacciAir(), 4, fc),
+                 lambda: BatchProver(FibonacciAir(), 4, fc),
+                 lambda: prove_batch_on_device(
+                     FibonacciAir(), [fibonacci_trace(16)] * 2, fc)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

@@ -17,7 +17,7 @@ import torch
 import plonky25_torch.proof as tproof
 import plonky25_tpu.proof as jproof
 from plonky25_torch.constants import GOLDILOCKS_P as P
-from plonky25_torch.convert import from_jax_witness
+from plonky25_torch.convert import from_jax
 from plonky25_torch.fields import gl as tgl
 from plonky25_torch.models import FibonacciAir as TFib
 from plonky25_torch.verifier import get_verifier as t_get_verifier
@@ -215,7 +215,7 @@ def witnesses(cases):
     t_cfg = tproof.derive_config(c.t_proof, c.t_fc)
     j_cfg = jproof.derive_config(c.j_proof, c.j_fc)
     own = t_pack(c.t_proof, t_cfg, "cpu")
-    carried = from_jax_witness(
+    carried = from_jax(
         jax.tree.map(np.asarray, j_pack(c.j_proof, j_cfg)), device="cpu")
     return t_cfg, own, carried
 
