@@ -7,19 +7,23 @@ Phases, one line each; any failure exits non-zero:
   [build]       both kernels, csrc/poseidon2.cu (state-major) and
                 csrc/poseidon2_soa.cu (lane-major), built for sm_90a from
                 this checkout's sources, one nvcc each, started together;
-                registers, spills and SASS instruction mix of each;
+                registers, spills and SASS instruction mix of each
+                __global__ (one thread per state, and split: three);
   [kernel]      the state-major kernel against its plain PyTorch version,
-                bit for bit: N = 1, 255, 257, 1,048,579, edge-value states,
-                the fixture's known answers, every state count it launches;
+                bit for bit, each variant and the launcher's choice: N = 1,
+                255, 257, 1,048,579 and both sides of the crossover,
+                edge-value states, the fixture's known answers, every state
+                count it launches;
   [single]      `verify_proof` of the fixture proof: the transcript values
                 of tests/fixtures/proof_fibonacci_expected.json, the tamper
                 battery, the launch count, the latency;
   [batch]       `BatchVerifier` at B=2048 proofs x Q=100 queries: exact
                 verdicts, ms per batch, queries/s, peak memory, ms per stage
                 (CUDA events), device time (torch.profiler);
-  [kernel-soa]  the lane-major kernel against its plain version and the
-                state-major kernel, at the same sizes and at every state
-                count the prover paths launch;
+  [kernel-soa]  the lane-major kernel, each variant, against its plain
+                version and the state-major kernel, at the same sizes, both
+                sides of its crossover and every state count the prover
+                paths launch;
   [prove-64]    `prove` of fib(64) at FriConfig(1, 100, 16): byte-equal to
                 tests/fixtures/proof_fibonacci_refimpl.json, launch counts;
   [prove-8192]  fib(2^13), whose LDE crosses the JAX package's six-step
@@ -34,11 +38,13 @@ Phases, one line each; any failure exits non-zero:
                 lane rejected by its quotient check; proofs/s, peak memory,
                 launches per batch;
   [timing]      each kernel at each path's state counts against its bound
-                and its plain version, and both kernels at 2^21 states;
+                and its plain version; both kernels, each variant, at
+                N = 1, 2,048, 32,768 and 2^21 and across the crossover
+                (CUDA events, and the kernel's device time alone);
 then the kernel table line {"kernels": [...]} and the last line
 {"ok": true, "device": {...}}.  Every path is driven with the launch
 counts set to 0 just before it and read just after, and the counts are held
-to the numbers the path's shape gives.
+to the numbers the path's shape gives, by variant too.
 
 With --report, the full measurements also go to PATH as JSON.  The script
 imports nothing of JAX or plonky25_tpu; it needs the repository beside it.
@@ -96,8 +102,10 @@ TAMPERED = ("pow", "merkle_sibling", "fold_sibling", "final_poly")
 AOS, SOA = "poseidon2_permute_w12", "poseidon2_permute_soa"
 # H100 SXM rates (NVIDIA data sheet; CUDA C Programming Guide throughput
 # table for compute capability 9.0): HBM bytes/s, and per SM per clock
-# 64 results of 32-bit integer add/compare/logic/shift/select (ALU pipe),
-# 64 of 32-bit integer multiply-add (FMA pipe), 4 x 32 instructions dispatched.
+# 64 results of 32-bit integer compare/logic/shift/select or three-input
+# add (ALU pipe), 64 of 32-bit integer multiply-add (FMA pipe), 4 x 32
+# instructions dispatched.  An add, with or without carry, issues on either
+# pipe (IADD3 on the ALU pipe, IMAD.IADD / IMAD.X on the FMA pipe).
 HBM_BYTES_PER_S = 3.35e12
 ALU_PER_CLK, FMA_PER_CLK, DISPATCH_PER_CLK = 64, 64, 128
 # What one permutation must compute (csrc/poseidon2_common.cuh): 736
@@ -113,12 +121,19 @@ P2_ADDS = (8 * 12 + 22) + 9 * (3 * 14 + 4 * 5) + 22 * (11 + 12)
 # cross-term sums folded into their addends), two adds to carry the cross
 # terms into the top words, four to reduce 128 bits to 64 with
 # 2^64 = 2^32 - 1 and 2^96 = -1 (a three-input add per word, two to fold
-# the last carry): 6 on the ALU pipe.  An add: one two-word add, 2 on the
-# ALU pipe.
-PRODUCT_FMA, PRODUCT_ALU, ADD_ALU = 4, 6, 2
-P2_OPS = {"fma_pipe": P2_PRODUCTS * PRODUCT_FMA,
-          "alu_pipe": P2_PRODUCTS * PRODUCT_ALU + P2_ADDS * ADD_ALU}
-P2_OPS["total"] = P2_OPS["fma_pipe"] + P2_OPS["alu_pipe"]
+# the last carry): 6 adds.  An add: one two-word add, 2 adds.  Only the
+# partial products are bound to one pipe (FMA); every add may issue on
+# either, and none of the work needs the ALU pipe alone.
+PRODUCT_FMA, PRODUCT_ADDS, ADD_ADDS = 4, 6, 2
+P2_OPS = {"fma_pipe": P2_PRODUCTS * PRODUCT_FMA, "alu_pipe": 0,
+          "either_pipe": P2_PRODUCTS * PRODUCT_ADDS + P2_ADDS * ADD_ADDS}
+P2_OPS["total"] = P2_OPS["fma_pipe"] + P2_OPS["either_pipe"]
+# ALU-pipe SASS instructions per state of the first kernels, one thread
+# per state, every operation corrected to its canonical value (PERF.md,
+# the first kernels' build on the card): printed beside this build's counts.
+FIRST_SASS_ALU = {AOS: 26_934, SOA: 27_171}
+SMALL_N = (1, 2048, 32768)            # latency-bound launches
+CROSSOVER_N = (8192, 16384, 24576, 32768, 40960, 49152, 65536)
 
 
 class SmokeError(RuntimeError):
@@ -152,16 +167,24 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+WRAPPERS = {AOS: p2.poseidon2_permute, SOA: p2.poseidon2_permute_soa}
+
+
 def counted(fn):
     """Run fn() with both kernels' launch counts set to 0 just before it;
-    return (fn's result, {kernel: launches} read just after)."""
+    return (fn's result, {kernel: launches, kernel.split: launches of the
+    split variant, kernel.whole: of the other} read just after)."""
     torch.cuda.synchronize()
-    p2.poseidon2_permute.launches = 0
-    p2.poseidon2_permute_soa.launches = 0
+    for w in WRAPPERS.values():
+        w.launches = w.launches_split = w.launches_whole = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {AOS: p2.poseidon2_permute.launches,
-                 SOA: p2.poseidon2_permute_soa.launches}
+    got = {}
+    for k, w in WRAPPERS.items():
+        got[k] = w.launches
+        got[k + ".split"] = w.launches_split
+        got[k + ".whole"] = w.launches_whole
+    return out, got
 
 
 class StageClock:
@@ -186,31 +209,55 @@ class StageClock:
 # ------------------------------------------------------------ build
 
 def clocks_per_state(mix):
-    """SM clocks one state costs at the issue rates above, for a mix
-    {"alu_pipe", "fma_pipe", "total"} of instructions per state."""
+    """SM clocks one state costs at the issue rates above, for a mix of
+    instructions per state: "alu_pipe" and "fma_pipe" count those bound to
+    one pipe, "total" all of them (with those that may issue on either)."""
     return max(mix["alu_pipe"] / ALU_PER_CLK, mix["fma_pipe"] / FMA_PER_CLK,
                mix["total"] / DISPATCH_PER_CLK)
 
 
-def sass_mix(path):
-    """Per-thread instruction counts of the library's kernel, by pipe, from
-    its SASS.  Both kernels are straight-line code (every round unrolled),
-    so the static count is what one thread executes."""
+def variant_of(function):
+    """"split" or "whole" for a kernel's mangled __global__ name."""
+    return "split" if "split_kernel" in function else "whole"
+
+
+def sass_mixes(path):
+    """{variant: per-thread instruction counts by pipe} of each __global__
+    of the library, from its SASS.  Every kernel is straight-line code
+    (every round unrolled), so the static count is what one thread
+    executes; a split thread runs a third of a state."""
     sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", path],
                           capture_output=True, text=True, check=True).stdout
-    ops = Counter(re.findall(
-        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_.]*)", sass))
-    ops.pop("NOP", None)
-    fma = sum(v for k, v in ops.items()
-              if k.startswith(("IMAD", "IMUL", "VIADD")))
-    uniform = sum(v for k, v in ops.items() if k.startswith("U"))
-    other = sum(v for k, v in ops.items() if k.startswith(
-        ("LD", "ST", "S2R", "S2UR", "EXIT", "BRA", "CS2R")))
-    total = sum(ops.values())
-    return {"total": total, "fma_pipe": fma, "uniform": uniform,
+    mixes = {}
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        ops = Counter(re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_.]*)",
+            chunk))
+        ops.pop("NOP", None)
+        fma = sum(v for k, v in ops.items()
+                  if k.startswith(("IMAD", "IMUL", "VIADD")))
+        uniform = sum(v for k, v in ops.items() if k.startswith("U"))
+        other = sum(v for k, v in ops.items() if k.startswith(
+            ("LD", "ST", "S2R", "S2UR", "EXIT", "BRA", "CS2R")))
+        total = sum(ops.values())
+        mixes[variant_of(chunk.split("\n", 1)[0])] = {
+            "total": total, "fma_pipe": fma, "uniform": uniform,
             "memory_control": other,
             "alu_pipe": total - fma - uniform - other,
             "by_opcode": dict(ops.most_common())}
+    return mixes
+
+
+def ptxas_report(log):
+    """{variant: (registers, bytes spilled)} from nvcc's -Xptxas -v log."""
+    out = {}
+    for part in log.split("Compiling entry function")[1:]:
+        regs = re.search(r"Used (\d+) registers", part)
+        spills = re.search(r"(\d+) bytes spill stores", part)
+        out[variant_of(part.split("\n", 1)[0])] = (
+            int(regs.group(1)) if regs else None,
+            int(spills.group(1)) if spills else None)
+    return out
 
 
 # ------------------------------------------------------------ kernels
@@ -240,13 +287,30 @@ def transposed(x):
     return gl.GL(x.lo.T.contiguous(), x.hi.T.contiguous())
 
 
+VARIANTS = (None, False, True)   # the launcher's choice, whole, split
+
+
+def aos_vs_plain(states):
+    """Max error of the state-major kernel, each variant and the
+    launcher's choice, against its plain version."""
+    want = p2.poseidon2_permute_plain(states)
+    return max(max_err(p2.poseidon2_permute(states) if v is None else
+                       p2._poseidon2_permute_variant(states, v), want)
+               for v in VARIANTS)
+
+
 def soa_vs_plain_and_aos(planes):
-    """Max error of the lane-major kernel against its plain version and
-    against the state-major kernel on the same states."""
-    out = p2.poseidon2_permute_soa(planes)
-    err = max_err(out, p2.poseidon2_permute_soa_plain(planes))
-    aos = p2.poseidon2_permute(transposed(planes))
-    return max(err, max_err(out, transposed(aos)))
+    """Max error of the lane-major kernel, each variant and the launcher's
+    choice, against its plain version and against the state-major kernel
+    on the same states."""
+    want = p2.poseidon2_permute_soa_plain(planes)
+    aos = transposed(p2.poseidon2_permute(transposed(planes)))
+    err = 0
+    for v in VARIANTS:
+        out = (p2.poseidon2_permute_soa(planes) if v is None else
+               p2._poseidon2_permute_soa_variant(planes, v))
+        err = max(err, max_err(out, want), max_err(out, aos))
+    return err
 
 
 def verify_path_shapes(v, b):
@@ -302,12 +366,19 @@ def prove_path_shapes(log_n, fc, width, b, windows):
     return {AOS: {b: transcript_steps(log_n, fc)}, SOA: dict(soa)}
 
 
-def check_launches(path, got, shapes):
-    """The path's counts equal its shape's, and each of its kernels ran."""
+def check_launches(path, got, shapes, split_max):
+    """The path's counts equal its shape's, in all and by variant (the
+    launches of at most split_max[k] states run split), and each of its
+    kernels ran."""
     for k in (AOS, SOA):
         want = sum(shapes[k].values())
+        split = sum(c for n, c in shapes[k].items() if n <= split_max[k])
         check(got[k] == want, f"{path}: {k} launched {got[k]} times, the "
               f"shape gives {want}")
+        check(got[k + ".split"] == split and got[k + ".whole"] == want - split,
+              f"{path}: {k} launched split {got[k + '.split']} and whole "
+              f"{got[k + '.whole']} times, the shape gives {split} and "
+              f"{want - split}")
         check(got[k] > 0 or not shapes[k], f"{path}: {k} was not launched")
 
 
@@ -358,6 +429,18 @@ def profile_device_time(fn):
     return total, count, kernels
 
 
+def kernel_device_ms(fn, reps):
+    """Mean device time of the Poseidon2 kernel launched by fn(), over
+    `reps` calls, from torch.profiler: unlike CUDA events around the
+    calls, it leaves out the host time of the wrapper, which bounds the
+    event time of a small launch.  None where the profiler saw no kernel."""
+    fn()
+    prof = profile_device_time(lambda: [fn() for _ in range(reps)])
+    mine = [(t, c) for name, (t, c) in (prof[2].items() if prof else ())
+            if "poseidon2" in name]
+    return sum(t for t, _ in mine) / sum(c for _, c in mine) if mine else None
+
+
 def device_summary(prof, wall_ms):
     if not prof:
         return "device time not measured (profiler saw no kernels)", None
@@ -398,26 +481,38 @@ def main(argv=None):
     t0 = time.perf_counter()
     libs = build.build_many(["poseidon2", "poseidon2_soa"])
     build_s = time.perf_counter() - t0
-    p2.kernel_library()
-    p2.soa_kernel_library()
+    split_max = {AOS: p2.kernel_library().split_max,
+                 SOA: p2.soa_kernel_library().split_max}
     mixes, report["build"] = {}, {"seconds": build_s,
                                   "permutation_ops": P2_OPS}
     for kernel, name in ((AOS, "poseidon2"), (SOA, "poseidon2_soa")):
         built = libs[name]
-        regs = re.search(r"Used (\d+) registers", built.log)
-        spills = re.search(r"(\d+) bytes spill stores", built.log)
-        mixes[kernel] = sass_mix(built.path)
+        regs = ptxas_report(built.log)
+        variants = sass_mixes(built.path)
+        check(set(variants) == set(regs) == {"whole", "split"},
+              f"{name}: want two __global__s, found {sorted(variants)}")
+        mixes[kernel] = variants["whole"]
+        parts = []
+        for var, m in sorted(variants.items(), reverse=True):
+            per_state = 3 if var == "split" else 1
+            parts.append(
+                f"{var} {regs[var][0]} registers, {regs[var][1]} bytes "
+                f"spilled, {m['total']} SASS instructions per thread (ALU "
+                f"pipe {m['alu_pipe']}, FMA pipe {m['fma_pipe']}; per state "
+                f"ALU {per_state * m['alu_pipe']})")
+            check(regs[var][1] == 0, f"{name} {var}: ptxas spilled registers")
         print(f"[build] {os.path.relpath(built.path, ROOT)} for sm_90a (nvcc "
               f"{built.seconds:.1f} s; both built in {build_s:.1f} s): "
-              f"{regs.group(1) if regs else '?'} registers, "
-              f"{spills.group(1) if spills else '?'} bytes spilled; "
-              f"{mixes[kernel]['total']} SASS instructions per permutation "
-              f"(ALU pipe {mixes[kernel]['alu_pipe']}, FMA pipe "
-              f"{mixes[kernel]['fma_pipe']}) against the arithmetic's "
-              f"fewest {P2_OPS['total']} (ALU {P2_OPS['alu_pipe']}, FMA "
-              f"{P2_OPS['fma_pipe']})")
+              + "; ".join(parts)
+              + f"; the first kernel's ALU pipe {FIRST_SASS_ALU[kernel]}, the "
+              f"arithmetic's fewest {P2_OPS['total']} instructions "
+              f"({P2_OPS['fma_pipe']} FMA-pipe multiplies, "
+              f"{P2_OPS['either_pipe']} adds on either pipe); split for "
+              f"N <= {split_max[kernel]}")
         report["build"][kernel] = {"nvcc_seconds": built.seconds,
-                                   "ptxas": built.log, "sass": mixes[kernel]}
+                                   "ptxas": built.log, "sass": variants,
+                                   "registers_spills": regs,
+                                   "split_max_states": split_max[kernel]}
 
     # ---- fixtures and the shapes every path launches
     with open(os.path.join(FIXTURES, "proof_fibonacci_expected.json")) as f:
@@ -440,29 +535,30 @@ def main(argv=None):
     # ---- state-major kernel against its plain version
     err_aos = 0
     sizes = [1, 255, 257, 1_048_579]
-    for n in sizes:
-        s = random_states(n, n)
-        err_aos = max(err_aos, max_err(p2.poseidon2_permute(s),
-                                       p2.poseidon2_permute_plain(s)))
+    edge_n = {k: [split_max[k], split_max[k] + 1] for k in (AOS, SOA)}
+    for n in sizes + edge_n[AOS]:
+        err_aos = max(err_aos, aos_vs_plain(random_states(n, n)))
     edges = edge_states()
-    err_aos = max(err_aos, max_err(p2.poseidon2_permute(edges),
-                                   p2.poseidon2_permute_plain(edges)))
+    err_aos = max(err_aos, aos_vs_plain(edges))
     kat = expected["poseidon2_known_answers"]
     kat_in = gl.from_u64(np.asarray([k["input"] for k in kat], np.uint64), DEVICE)
-    check(gl.to_u64(p2.poseidon2_permute(kat_in)).tolist()
-          == [k["output"] for k in kat],
-          "state-major kernel disagrees with the fixture's known answers")
+    for variant in VARIANTS:
+        out = (p2.poseidon2_permute(kat_in) if variant is None else
+               p2._poseidon2_permute_variant(kat_in, variant))
+        check(gl.to_u64(out).tolist() == [k["output"] for k in kat],
+              f"state-major kernel (split={variant}) disagrees with the "
+              f"fixture's known answers")
     verify_sizes = sorted(set(path_shapes["verify_single"][AOS])
                           | set(path_shapes["verify_batch"][AOS]))
     for n in verify_sizes:
-        s = random_states(n, 7 * n + 1)
-        err_aos = max(err_aos, max_err(p2.poseidon2_permute(s),
-                                       p2.poseidon2_permute_plain(s)))
+        err_aos = max(err_aos, aos_vs_plain(random_states(n, 7 * n + 1)))
     check(err_aos == 0, f"state-major kernel differs from the plain version "
           f"by {err_aos}")
-    print(f"[kernel] {AOS} bit-equal to the plain version at "
-          f"N={','.join(map(str, sizes))}, on {edges.shape[0]} edge-value "
-          f"states, on {len(kat)} known answers and at the verifier paths' "
+    print(f"[kernel] {AOS}, both variants and the launcher's choice, "
+          f"bit-equal to the plain version at N={','.join(map(str, sizes))}, "
+          f"on both sides of the crossover (N={','.join(map(str, edge_n[AOS]))}"
+          f"), on {edges.shape[0]} edge-value states, on {len(kat)} known "
+          f"answers and at the verifier paths' "
           f"N={','.join(map(str, verify_sizes))}")
 
     # ---- one proof through verify_proof
@@ -492,7 +588,7 @@ def main(argv=None):
     ok, path_launches["verify_single"] = counted(verify_one)
     check(ok, "fixture rejected")
     check_launches("verify_single", path_launches["verify_single"],
-                   path_shapes["verify_single"])
+                   path_shapes["verify_single"], split_max)
     lat = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -527,7 +623,7 @@ def main(argv=None):
     ok, path_launches["verify_batch"] = counted(verify_batch)
     check(torch.equal(ok, want), "batch verdicts differ")
     check_launches("verify_batch", path_launches["verify_batch"],
-                   path_shapes["verify_batch"])
+                   path_shapes["verify_batch"], split_max)
     runs = []
     torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
@@ -560,22 +656,28 @@ def main(argv=None):
         prove_path_shapes(log_n, fc, 3, b, 1)[SOA]
         for log_n, b in ((6, 1), (13, 1), (LOG_N, 1), (6, B_PROVE)))))
     err_soa = 0
-    for n in sizes:
+    for n in sizes + edge_n[SOA]:
         err_soa = max(err_soa, soa_vs_plain_and_aos(
             random_states(n, n, lane_major=True)))
     err_soa = max(err_soa, soa_vs_plain_and_aos(transposed(edges)))
-    kat_soa = p2.poseidon2_permute_soa(transposed(kat_in))
-    check(gl.to_u64(transposed(kat_soa)).tolist() == [k["output"] for k in kat],
-          "lane-major kernel disagrees with the fixture's known answers")
-    err_soa = max(err_soa, soa_vs_plain_and_aos(transposed(kat_in)))
+    for variant in VARIANTS:
+        out = (p2.poseidon2_permute_soa(transposed(kat_in)) if variant is None
+               else p2._poseidon2_permute_soa_variant(transposed(kat_in),
+                                                      variant))
+        check(gl.to_u64(transposed(out)).tolist()
+              == [k["output"] for k in kat],
+              f"lane-major kernel (split={variant}) disagrees with the "
+              f"fixture's known answers")
     for n in prover_sizes:
         err_soa = max(err_soa, soa_vs_plain_and_aos(
             random_states(n, 3 * n + 2, lane_major=True)))
         torch.cuda.empty_cache()
     check(err_soa == 0, f"lane-major kernel differs from the plain version or "
           f"the state-major kernel by {err_soa}")
-    print(f"[kernel-soa] {SOA} bit-equal to its plain version and to "
-          f"{AOS} at N={','.join(map(str, sizes))}, on the edge-value states, "
+    print(f"[kernel-soa] {SOA}, both variants and the launcher's choice, "
+          f"bit-equal to its plain version and to {AOS} (transposed) at "
+          f"N={','.join(map(str, sizes))}, on both sides of the crossover "
+          f"(N={','.join(map(str, edge_n[SOA]))}), on the edge-value states, "
           f"on the known answers and at the prover paths' "
           f"N={','.join(map(str, prover_sizes))}")
 
@@ -585,7 +687,8 @@ def main(argv=None):
         lambda: prove(air, fibonacci_trace(64), fc, device=DEVICE))
     check(compact(p64) == fixture_text,
           "fib(64) proof differs from tests/fixtures/proof_fibonacci_refimpl.json")
-    check_launches("prove_64", path_launches["prove_64"], path_shapes["prove_64"])
+    check_launches("prove_64", path_launches["prove_64"],
+                   path_shapes["prove_64"], split_max)
     print(f"[prove-64] fib(64) proof byte-equal to the fixture "
           f"({len(fixture_text)} bytes, PoW witness {w64}); launches: "
           f"{AOS} {path_launches['prove_64'][AOS]}, {SOA} "
@@ -632,7 +735,8 @@ def main(argv=None):
             lambda: prove(air, trace, fc, device=DEVICE))
         steady.append((time.perf_counter() - t0) * 1e3)
         check(compact(again) == big_text, "fib(2^20) proofs differ between runs")
-    check_launches("prove", path_launches["prove"], path_shapes["prove"])
+    check_launches("prove", path_launches["prove"], path_shapes["prove"],
+                   split_max)
     clock = StageClock()
     prove(air, trace, fc, device=DEVICE, on_stage=clock)
     prove_stage_ms = clock.ms()
@@ -679,7 +783,7 @@ def main(argv=None):
                      for pr in proofs) // GRIND_WINDOW + 1
     path_shapes["batch_prove"] = prove_path_shapes(6, fc, 3, B_PROVE, bp_windows)
     check_launches("batch_prove", path_launches["batch_prove"],
-                   path_shapes["batch_prove"])
+                   path_shapes["batch_prove"], split_max)
     one = path_launches["prove_64"]
     check(path_launches["batch_prove"][AOS] == one[AOS]
           and path_launches["batch_prove"][SOA] - bp_windows
@@ -758,13 +862,53 @@ def main(argv=None):
     print(f"[timing] at 2^21 states (the trace tree's leaf hash): {AOS} "
           f"{same_n[AOS]['ms']:.3f} ms, {SOA} {same_n[SOA]['ms']:.3f} ms, "
           f"bound {same_n[SOA]['bound_ms']:.3f} ms from the permutation's "
-          f"arithmetic ({P2_OPS['alu_pipe']} ALU-pipe instructions per "
-          f"state), {same_n[AOS]['sass_bound_ms']:.3f} and "
+          f"arithmetic ({P2_OPS['total']} instructions, "
+          f"{clocks_per_state(P2_OPS):.1f} clocks per state), "
+          f"{same_n[AOS]['sass_bound_ms']:.3f} and "
           f"{same_n[SOA]['sass_bound_ms']:.3f} ms at the kernels' own SASS "
           f"counts; per path (ms / bound_ms): "
           + "; ".join(f"{k} {p} {v['ms']:.2f}/{v['bound_ms']:.2f}"
                       for k in (AOS, SOA) for p, v in paths[k].items()
                       if v["launches"]))
+    # each variant at the latency-bound sizes, across the crossover and at
+    # 2^21, whatever the launcher would choose there: CUDA events around
+    # the calls (host time of the wrapper included) and the device time
+    # of the kernel alone
+    variant_ms = {AOS: {}, SOA: {}}
+    for kernel in (AOS, SOA):
+        fn = (p2._poseidon2_permute_soa_variant if kernel == SOA else
+              p2._poseidon2_permute_variant)
+        for n in sorted(set(SMALL_N + CROSSOVER_N + (1 << 21,))):
+            s = random_states(n, n, kernel == SOA)
+            reps = 100 if n < 10**5 else 5
+            variant_ms[kernel][n] = {
+                f"{var}{key}": timer(lambda: fn(s, var == "split"), reps)
+                for var in ("whole", "split")
+                for key, timer in (("", cuda_ms),
+                                   ("_device", kernel_device_ms))}
+            del s
+            torch.cuda.empty_cache()
+
+    def faster(t, var, other):
+        key = "_device" if t["whole_device"] is not None else ""
+        return t[var + key] < t[other + key]
+
+    crossover = {k: max([n for n, t in variant_ms[k].items()
+                         if faster(t, "split", "whole")], default=0)
+                 for k in (AOS, SOA)}
+
+    def fmt(x):
+        return "not measured" if x is None else f"{x:.4f}"
+
+    for kernel in (AOS, SOA):
+        print(f"[timing] {kernel} variants, ms whole / split (events; device"
+              f" time alone): "
+              + ", ".join(f"N={n} {t['whole']:.4f}/{t['split']:.4f} "
+                          f"({fmt(t['whole_device'])}/"
+                          f"{fmt(t['split_device'])})"
+                          for n, t in variant_ms[kernel].items())
+              + f"; split faster up to N={crossover[kernel]} of these, the "
+              f"launcher splits N <= {split_max[kernel]}")
     kernel_rows = []
     for kernel, src, rep, err in (
             (AOS, p2.KERNEL_SOURCE, p2.REPLACES, err_aos),
@@ -781,6 +925,17 @@ def main(argv=None):
             "bound_by": main_path["bound_by"], "library_ms": None,
             "sass_bound_ms": main_path["sass_bound_ms"],
             "at_2_pow_21": same_n[kernel], "paths": paths[kernel],
+            "split_max_states": split_max[kernel],
+            "launches_split": path_launches["prove"][kernel + ".split"],
+            "launches_whole": path_launches["prove"][kernel + ".whole"],
+            "launches_by_variant": {
+                p: {var: path_launches[p][f"{kernel}.{var}"]
+                    for var in ("whole", "split")} for p in path_launches},
+            "variant_ms": variant_ms[kernel],
+            "split_faster_up_to": crossover[kernel],
+            "sass_alu_per_state": {
+                var: (3 if var == "split" else 1) * m["alu_pipe"]
+                for var, m in report["build"][kernel]["sass"].items()},
         })
     report["kernels"] = kernel_rows
     report["seconds"] = time.perf_counter() - t_start

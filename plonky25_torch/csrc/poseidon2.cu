@@ -1,5 +1,5 @@
 // Poseidon2 width-12 permutation over Goldilocks on state-major states: the
-// state is (n, 12), lane k of state i at i * 12 + k.  One state per thread.
+// state is (n, 12), lane k of state i at i * 12 + k.
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // plonky25_tpu/ops/pallas/poseidon2_pallas.py:103 (launched by _permute_cols).
@@ -7,18 +7,43 @@
 // Callers: the verifier's sponge and Merkle walks, and every transcript's
 // duplex steps.
 //
-// What bounds it on an H100: integer instruction throughput, not bytes.  A
+// What bounds it on an H100: integer instruction issue, not bytes.  A
 // state moves 192 B in and 192 B out (12 lanes as the port's two int64
-// limb planes) and costs 736 Goldilocks products (8 full rounds x 12 lanes
-// x 4 for x^7, plus 22 partial rounds x (4 + 12)) and 1,182 modular adds,
-// each product a 64x64->128-bit multiply and a reduction: thousands of
-// integer instructions against 384 B of traffic.
+// limb planes) and costs 736 Goldilocks products and the linear layers'
+// sums.  Large launches (a verification batch: 409,600 and 1,228,800
+// states) are bound by integer issue (the ALU and FMA pipes, about equally
+// loaded); small ones (a transcript step: 1 to
+// 2,048 states) by the latency of one thread's dependent instruction
+// stream, since they leave most of the card's warp slots empty.
 //
-// What the design does about it: one thread keeps its state in 12 64-bit
-// registers for all 30 rounds, so only the state itself touches memory; the
-// rounds, with their constants as immediates, are p25::permute
-// (poseidon2_common.cuh), shared with the lane-major kernel.  Blocks share
-// nothing, and the ragged tail of the batch is masked by an index test.
+// What the design does about it: both variants run the lean permutation of
+// poseidon2_common.cuh (lazy reduction, linear layers as wide integer
+// sums, carry-chained products; constants as immediates), shared with the
+// lane-major kernel.
+//  * `poseidon2_w12_kernel`, one state per thread, the 12 lanes in
+//    registers for all 30 rounds: the fewest instructions per state, for
+//    launches that fill the card.
+//  * `poseidon2_w12_split_kernel`, one state per three threads of a warp,
+//    one M4 block of 4 lanes each (10 states per warp, 2 spare lanes): each
+//    thread runs a third of the external rounds' S-boxes and of the
+//    internal diagonal, and the threads exchange the lane sums of M_E and
+//    the internal layer's sum with __shfl_sync.  Three threads, not four
+//    of 3 lanes, because M4 acts on 4-lane blocks: with one block per
+//    thread only sums cross threads.  Each thread's stream is about 45% of
+//    the whole state's, which is what a latency-bound launch waits for.
+// p25_poseidon2_permute_w12 runs the split variant for n <= kSplitMaxStates
+// and the other above.  The crossover, 40,960 states, is where the split
+// variant's 3.2x as many warps start to fill the card and its extra work
+// (the shuffles, and the constants it selects by part at run time) stops
+// paying: measured on an NVIDIA H100 80GB HBM3 at 700 W by chip_smoke.py
+// [timing], which times both variants across it (PERF.md).
+//
+// Registers (ptxas -v for sm_90a, chip_smoke.py [build]): one thread per
+// state 64, so 8 blocks of 128 threads (32 warps, half the SM's 64) fit
+// an SM; split 40, 12 blocks (48 warps).  No spills; both keep
+// __launch_bounds__(128).  After the redesign a state costs about 18,700
+// SASS instructions, split evenly between the ALU and FMA pipes (the
+// first kernel issued about 39,000, 27,000 of them on the ALU pipe).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -shared
 // (plonky25_torch/ops/build.py); plain C interface, loaded with ctypes.
@@ -35,6 +60,10 @@ using p25::kEps;
 using p25::kWidth;
 
 constexpr int kThreads = 128;
+constexpr int kStatesPerWarp = 10;
+constexpr int kSplitStatesPerBlock = kThreads / 32 * kStatesPerWarp;
+// The split variant runs launches of at most this many states.
+constexpr int64_t kSplitMaxStates = 40960;
 
 // in_lo/in_hi/out_lo/out_hi: (n, 12) int64 limb planes, limbs in [0, 2^32),
 // values canonical.  out may alias in.
@@ -58,20 +87,73 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The same on three threads per state (see the note above).  Every thread
+// of a warp runs the permutation, as its shuffles need; those without a
+// state (the spare lanes, the ragged tail) load zeros and store nothing.
+__global__ void __launch_bounds__(kThreads)
+    poseidon2_w12_split_kernel(const int64_t* in_lo, const int64_t* in_hi,
+                               int64_t* out_lo, int64_t* out_hi, int64_t n) {
+  const int lane = threadIdx.x % 32;
+  const p25::Group g = p25::Group::of(lane);
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kSplitStatesPerBlock +
+                    threadIdx.x / 32 * kStatesPerWarp + lane / 3;
+  const bool live = lane < 3 * kStatesPerWarp && i < n;
+  const int64_t base = i * kWidth + 4 * g.part;
+  uint64_t x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    x[j] = live ? static_cast<uint64_t>(in_lo[base + j]) |
+                      (static_cast<uint64_t>(in_hi[base + j]) << 32)
+                : 0;
+  }
+  p25::permute_split(x, g);
+  if (!live) return;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    out_lo[base + j] = static_cast<int64_t>(x[j] & kEps);
+    out_hi[base + j] = static_cast<int64_t>(x[j] >> 32);
+  }
+}
+
+int launch(const int64_t* in_lo, const int64_t* in_hi, int64_t* out_lo,
+           int64_t* out_hi, int64_t n, bool split, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t per_block = split ? kSplitStatesPerBlock : kThreads;
+  const int64_t blocks = (n + per_block - 1) / per_block;
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = split ? poseidon2_w12_split_kernel : poseidon2_w12_kernel;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(in_lo, in_hi, out_lo, out_hi,
+                                                n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launches the permutation of n states on `stream`; allocates nothing and
-// does not synchronise.  Returns cudaGetLastError() after the launch (0 on
-// success).
+// Launches the permutation of n states on `stream`, on the variant that n
+// selects (three threads per state for n <= kSplitMaxStates, else one),
+// and stores that variant in *split (1: three threads per state, 0: one),
+// so that the caller counts what ran.  Allocates nothing and does not
+// synchronise.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int p25_poseidon2_permute_w12(const int64_t* in_lo,
                                          const int64_t* in_hi,
                                          int64_t* out_lo, int64_t* out_hi,
-                                         int64_t n, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  poseidon2_w12_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      in_lo, in_hi, out_lo, out_hi, n);
-  return static_cast<int>(cudaGetLastError());
+                                         int64_t n, void* stream, int* split) {
+  *split = n <= kSplitMaxStates;
+  return launch(in_lo, in_hi, out_lo, out_hi, n, *split != 0, stream);
+}
+
+// A measurement hook, not part of the wrapper's contract: the variant
+// named by `split` (1: three threads per state, 0: one), whatever n is,
+// so that each variant can be held to the plain version and timed on both
+// sides of the crossover.
+extern "C" int p25_poseidon2_permute_w12_variant(
+    const int64_t* in_lo, const int64_t* in_hi, int64_t* out_lo,
+    int64_t* out_hi, int64_t n, int split, void* stream) {
+  return launch(in_lo, in_hi, out_lo, out_hi, n, split != 0, stream);
+}
+
+// The largest launch that p25_poseidon2_permute_w12 runs split.
+extern "C" int64_t p25_poseidon2_w12_split_max_states() {
+  return kSplitMaxStates;
 }

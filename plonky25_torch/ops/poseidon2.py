@@ -9,8 +9,15 @@ tensor's device alone:
     every batch size, or raises.  There is no size threshold, no fallback
     and no switch around it.
 
-`poseidon2_permute.launches` counts the kernel's launches, so a run can show
-that its main path went through the kernel.
+Each kernel has two hand-written variants, one thread per state and three
+threads per state; its C launcher picks one by the number of states alone
+(the crossover is a constant of the .cu file) and reports which it ran.
+`poseidon2_permute.launches` counts the kernel's launches, so a run can
+show that its main path went through the kernel, and `launches_whole` /
+`launches_split` count them by the variant the launcher reported.
+`_poseidon2_permute_variant` is a measurement hook, not part of this
+contract: it runs the variant it is told to at any size, so that each can
+be held to the plain version and timed on both sides of the crossover.
 
 The plain version mirrors plonky25_tpu/ops/poseidon2.py (rounds in array
 form over a (..., 12) state; the constants of poseidon2_goldilocks.rs:11-164);
@@ -22,7 +29,8 @@ states, planes (12, ...): lane k of every state in planes[k].  It picks by
 device in the same way, between `poseidon2_permute_soa_plain` (a mirror of
 the Pallas `_soa_*` helpers on a list of 12 lane arrays) and the kernel
 csrc/poseidon2_soa.cu, which replaces the Pallas kernel of
-poseidon2_pallas.py:219; `poseidon2_permute_soa.launches` is its own count.
+poseidon2_pallas.py:219; `poseidon2_permute_soa.launches` (and by variant)
+is its own count.
 """
 
 from __future__ import annotations
@@ -112,14 +120,28 @@ def poseidon2_permute_plain(state: GL) -> GL:
 # ------------------------------------------------------------ the kernel
 
 
+def _load(name: str, entry: str, split_max: str) -> build.Built:
+    """Build (at first use) and load csrc/<name>.cu; bind its launcher
+    `entry`, the measurement hook `entry`_variant, and the crossover
+    getter `split_max` (the launcher runs n <= split_max states split)."""
+    built = build.build(name)
+    limbs = [ctypes.c_void_p] * 4 + [ctypes.c_int64]
+    launcher = getattr(built.lib, entry)
+    hook = getattr(built.lib, entry + "_variant")
+    launcher.argtypes = limbs + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    hook.argtypes = limbs + [ctypes.c_int, ctypes.c_void_p]
+    launcher.restype = hook.restype = ctypes.c_int
+    getter = getattr(built.lib, split_max)
+    getter.argtypes, getter.restype = [], ctypes.c_int64
+    built.split_max = int(getter())
+    return built
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_library() -> build.Built:
     """Build (at first use) and load csrc/poseidon2.cu."""
-    built = build.build("poseidon2")
-    fn = built.lib.p25_poseidon2_permute_w12
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return built
+    return _load("poseidon2", "p25_poseidon2_permute_w12",
+                 "p25_poseidon2_w12_split_max_states")
 
 
 def check_kernel_input(state: GL, lane_axis: int = -1) -> None:
@@ -141,29 +163,62 @@ def check_kernel_input(state: GL, lane_axis: int = -1) -> None:
                          f"{lo.device} and {hi.device}")
 
 
+def _launch(wrapper, built: build.Built, entry: str, state: GL,
+            split=None) -> GL:
+    """Launch `entry` of `built` on `state` (checked by the caller) into
+    new tensors: the variant n selects, or through the hook `entry`_variant
+    the one `split` names.  Counts the launch on `wrapper` by the variant
+    that ran."""
+    lo, hi = state
+    out_lo, out_hi = torch.empty_like(lo), torch.empty_like(hi)
+    n = lo.numel() // WIDTH
+    if n == 0:
+        return GL(out_lo, out_hi)
+    with torch.cuda.device(lo.device):
+        stream = torch.cuda.current_stream(lo.device).cuda_stream
+        ptrs = (lo.data_ptr(), hi.data_ptr(), out_lo.data_ptr(),
+                out_hi.data_ptr(), n)
+        if split is None:
+            ran_split = ctypes.c_int(0)
+            err = getattr(built.lib, entry)(*ptrs, stream,
+                                            ctypes.byref(ran_split))
+            split = bool(ran_split.value)
+        else:
+            entry += "_variant"
+            err = getattr(built.lib, entry)(*ptrs, int(split), stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    wrapper.launches += 1
+    if split:
+        wrapper.launches_split += 1
+    else:
+        wrapper.launches_whole += 1
+    return GL(out_lo, out_hi)
+
+
 def poseidon2_permute(state: GL) -> GL:
     """Permute a GL of shape (..., 12): the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors (see the module docstring)."""
     if state.lo.device.type == "cpu" and state.hi.device.type == "cpu":
         return poseidon2_permute_plain(state)
     check_kernel_input(state)
-    lo, hi = state
-    out_lo, out_hi = torch.empty_like(lo), torch.empty_like(hi)
-    n = lo.numel() // WIDTH
-    if n == 0:
-        return GL(out_lo, out_hi)
-    fn = kernel_library().lib.p25_poseidon2_permute_w12
-    with torch.cuda.device(lo.device):
-        stream = torch.cuda.current_stream(lo.device).cuda_stream
-        err = fn(lo.data_ptr(), hi.data_ptr(), out_lo.data_ptr(),
-                 out_hi.data_ptr(), n, stream)
-    if err != 0:
-        raise RuntimeError(f"poseidon2 kernel launch failed: cudaError {err}")
-    poseidon2_permute.launches += 1
-    return GL(out_lo, out_hi)
+    return _launch(poseidon2_permute, kernel_library(),
+                   "p25_poseidon2_permute_w12", state)
+
+
+def _poseidon2_permute_variant(state: GL, split: bool) -> GL:
+    """Measurement hook, not part of the wrapper's contract: the kernel's
+    variant `split` (three threads per state) or not (one) on CUDA
+    state-major states, at any size, for holding each variant to the plain
+    version and timing it on both sides of the crossover.  Counted on
+    poseidon2_permute."""
+    check_kernel_input(state)
+    return _launch(poseidon2_permute, kernel_library(),
+                   "p25_poseidon2_permute_w12", state, split)
 
 
 poseidon2_permute.launches = 0
+poseidon2_permute.launches_split = poseidon2_permute.launches_whole = 0
 
 
 # ------------------------------------------------------------ lane-major form
@@ -230,11 +285,8 @@ def poseidon2_permute_soa_plain(planes: GL) -> GL:
 @functools.lru_cache(maxsize=None)
 def soa_kernel_library() -> build.Built:
     """Build (at first use) and load csrc/poseidon2_soa.cu."""
-    built = build.build("poseidon2_soa")
-    fn = built.lib.p25_poseidon2_permute_soa
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return built
+    return _load("poseidon2_soa", "p25_poseidon2_permute_soa",
+                 "p25_poseidon2_soa_split_max_states")
 
 
 def poseidon2_permute_soa(planes: GL) -> GL:
@@ -243,20 +295,17 @@ def poseidon2_permute_soa(planes: GL) -> GL:
     if planes.lo.device.type == "cpu" and planes.hi.device.type == "cpu":
         return poseidon2_permute_soa_plain(planes)
     check_kernel_input(planes, lane_axis=0)
-    lo, hi = planes
-    out_lo, out_hi = torch.empty_like(lo), torch.empty_like(hi)
-    n = lo.numel() // WIDTH
-    if n == 0:
-        return GL(out_lo, out_hi)
-    fn = soa_kernel_library().lib.p25_poseidon2_permute_soa
-    with torch.cuda.device(lo.device):
-        stream = torch.cuda.current_stream(lo.device).cuda_stream
-        err = fn(lo.data_ptr(), hi.data_ptr(), out_lo.data_ptr(),
-                 out_hi.data_ptr(), n, stream)
-    if err != 0:
-        raise RuntimeError(f"poseidon2 SoA kernel launch failed: cudaError {err}")
-    poseidon2_permute_soa.launches += 1
-    return GL(out_lo, out_hi)
+    return _launch(poseidon2_permute_soa, soa_kernel_library(),
+                   "p25_poseidon2_permute_soa", planes)
+
+
+def _poseidon2_permute_soa_variant(planes: GL, split: bool) -> GL:
+    """The measurement hook _poseidon2_permute_variant for lane-major
+    planes (12, ...).  Counted on poseidon2_permute_soa."""
+    check_kernel_input(planes, lane_axis=0)
+    return _launch(poseidon2_permute_soa, soa_kernel_library(),
+                   "p25_poseidon2_permute_soa", planes, split)
 
 
 poseidon2_permute_soa.launches = 0
+poseidon2_permute_soa.launches_split = poseidon2_permute_soa.launches_whole = 0

@@ -118,21 +118,41 @@ def test_kernel_constants_are_the_reduced_tables():
         src = _csrc(name)
         assert '#include "poseidon2_common.cuh"' in src, name
         assert "p25::permute(s);" in src, name
+        assert "p25::permute_split(x, g);" in src, name
         assert not re.search(r"0x[0-9A-Fa-f]{9,}", src), name
+
+
+def _gpu_sizes(split_max):
+    """Small, ragged and large sizes, and both sides of the crossover."""
+    return (1, 255, 257, split_max, split_max + 1, 100_003)
 
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_gpu():
+    """Both variants (one thread and three threads per state) and the
+    launcher's choice, bit-equal to the plain version; the launch counted
+    on the variant the state count selects."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    for n in (1, 255, 257, 100_003):
+    split_max = tp2.kernel_library().split_max
+    w = tp2.poseidon2_permute
+    for n in _gpu_sizes(split_max):
         s = tgl.from_u64(_states(n, n), "cuda")
-        before = tp2.poseidon2_permute.launches
-        out = tp2.poseidon2_permute(s)
+        before = (w.launches, w.launches_split, w.launches_whole)
+        out = w(s)
         want = tp2.poseidon2_permute_plain(s)
         torch.cuda.synchronize()
-        assert tp2.poseidon2_permute.launches == before + 1
-        assert torch.equal(out.lo, want.lo) and torch.equal(out.hi, want.hi)
+        split = n <= split_max
+        assert (w.launches, w.launches_split, w.launches_whole) == (
+            before[0] + 1, before[1] + split, before[2] + (not split))
+        for got in (out, tp2._poseidon2_permute_variant(s, False),
+                    tp2._poseidon2_permute_variant(s, True)):
+            assert torch.equal(got.lo, want.lo) and torch.equal(got.hi, want.hi)
+    e = tgl.from_u64(_edge_states(), "cuda")
+    want = tp2.poseidon2_permute_plain(e)
+    for split in (False, True):
+        got = tp2._poseidon2_permute_variant(e, split)
+        assert torch.equal(got.lo, want.lo) and torch.equal(got.hi, want.hi)
 
 
 # ------------------------------------------------------------ lane-major form
@@ -240,16 +260,26 @@ def test_constants_header_matches_constants():
 
 @pytest.mark.cuda
 def test_soa_kernel_matches_plain_and_state_major_kernel_on_gpu():
+    """Both lane-major variants and the launcher's choice, bit-equal to the
+    plain version and to the state-major kernel, transposed."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    for n in (1, 255, 257, 100_003):
-        s = tgl.from_u64(_states(n, n).T.copy(), "cuda")
-        before = tp2.poseidon2_permute_soa.launches
-        out = tp2.poseidon2_permute_soa(s)
+    split_max = tp2.soa_kernel_library().split_max
+    w = tp2.poseidon2_permute_soa
+    for rows in [_states(n, n) for n in _gpu_sizes(split_max)] + [
+            _edge_states()]:
+        n = len(rows)
+        s = tgl.from_u64(rows.T.copy(), "cuda")
+        before = (w.launches, w.launches_split, w.launches_whole)
+        out = w(s)
         want = tp2.poseidon2_permute_soa_plain(s)
         aos = tp2.poseidon2_permute(tgl.GL(s.lo.T.contiguous(),
                                            s.hi.T.contiguous()))
         torch.cuda.synchronize()
-        assert tp2.poseidon2_permute_soa.launches == before + 1
-        assert torch.equal(out.lo, want.lo) and torch.equal(out.hi, want.hi)
-        assert torch.equal(out.lo, aos.lo.T) and torch.equal(out.hi, aos.hi.T)
+        split = n <= split_max
+        assert (w.launches, w.launches_split, w.launches_whole) == (
+            before[0] + 1, before[1] + split, before[2] + (not split))
+        for got in (out, tp2._poseidon2_permute_soa_variant(s, False),
+                    tp2._poseidon2_permute_soa_variant(s, True)):
+            assert torch.equal(got.lo, want.lo) and torch.equal(got.hi, want.hi)
+            assert torch.equal(got.lo, aos.lo.T) and torch.equal(got.hi, aos.hi.T)
