@@ -37,6 +37,33 @@ Phases, one line each; any failure exits non-zero:
                 tampered: valid lanes byte-equal to the fixture, the tampered
                 lane rejected by its quotient check; proofs/s, peak memory,
                 launches per batch;
+  [mmcs-multi]  the multi-height MMCS `verify_batch` on
+                tests/fixtures/mmcs_multi_height.json (heights 2^12, 2^12,
+                2^6, 2^3, 1; 100 openings): all accepted, a flipped sibling
+                below each fold-in and a changed row of each short group
+                rejected, verdicts equal to the plain path on the CPU;
+  [prove-rlc-64], [prove-multiset-64]  the multi-stage AIRs on the seeded
+                64-row traces of tests/fixtures/proof_{rlc,multiset}64_
+                expected.json: digest, commitments, challenges, alpha,
+                zeta, PoW witness and query indices equal to the JAX
+                package's; accepted by `verify_proof`;
+  [batch-rlc]   `BatchVerifier` at B=2048 x Q=100 on copies of the RLC
+                proof (three Merkle batches per query), five lanes tampered
+                (pow, Merkle sibling, fold sibling, final poly, stage-2
+                leaf): exact verdicts, queries/s, stage ms, peak memory,
+                device time;
+  [prove-rlc]   RlcAir at 2^20 rows: accepted; a flipped stage-2 sibling, a
+                changed stage2_local value and a changed stage-2 commitment
+                rejected; first and steady latency, stage ms (stage2 its own
+                stage), launches, device time, peak memory;
+  [prove-multiset]  MultisetAir at 2^20 pairs (two quotient chunks):
+                accepted; side B with one value changed proves and is
+                rejected by its quotient check alone; the same measurements;
+  [batch-prove-rlc]  `BatchProver` on 256 distinct 64-row RLC traces, lane
+                0 the fixture's (its digest), one lane's stage-2 column
+                changed at a row by a prover faulty on that lane: all 256
+                through one `BatchVerifier` call, the faulty lane rejected
+                by its quotient check alone; proofs/s, peak memory;
   [timing]      each kernel at each path's state counts against its bound
                 and its plain version; both kernels, each variant, at
                 N = 1, 2,048, 32,768 and 2^21 and across the crossover
@@ -71,9 +98,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from plonky25_torch.challenger import SymbolicChallenger  # noqa: E402
-from plonky25_torch.constants import RATE  # noqa: E402
+from plonky25_torch.constants import EXT_DEGREE, RATE  # noqa: E402
 from plonky25_torch.fields import gl  # noqa: E402
-from plonky25_torch.models import FibonacciAir  # noqa: E402
+from plonky25_torch.models import FibonacciAir, MultisetAir, RlcAir  # noqa: E402
 from plonky25_torch.models.fibonacci import fibonacci_trace  # noqa: E402
 from plonky25_torch.ops import build  # noqa: E402
 from plonky25_torch.ops import poseidon2 as p2  # noqa: E402
@@ -81,14 +108,18 @@ from plonky25_torch.parallel.batch import (  # noqa: E402
     BatchVerifier,
     stack_witnesses,
 )
+from plonky25_torch.ops.sponge import verify_batch as mmcs_verify_batch  # noqa: E402
 from plonky25_torch.proof import (  # noqa: E402
     FriConfig,
+    P3Config,
     derive_config,
     load_proof,
     proof_to_json,
 )
 from plonky25_torch.prover import BatchProver, prove  # noqa: E402
 from plonky25_torch.prover.prove import GRIND_WINDOW  # noqa: E402
+from plonky25_torch.utils.bits import log2_ceil  # noqa: E402
+from plonky25_torch.utils.tree import tree_map  # noqa: E402
 from plonky25_torch.verifier import get_verifier, verify_proof  # noqa: E402
 from plonky25_torch.witness import pack_witness  # noqa: E402
 
@@ -316,9 +347,9 @@ def soa_vs_plain_and_aos(planes):
 def verify_path_shapes(v, b):
     """{states per launch: launches} of the state-major kernel in one
     verification of b proofs: the transcript's duplex steps, the fused
-    Merkle walk (leaf hash + one compression per level), the fold's leaf
-    hash and its walk."""
-    nb = 2                                   # trace and quotient batches
+    Merkle walk (leaf hash + one compression per level) over the trace,
+    [stage-2] and quotient batches, the fold's leaf hash and its walk."""
+    nb = 3 if v.s2w else 2
     shapes = Counter()
     shapes[b] += v.n_steps
     shapes[nb * b * v.Q] += 1 + v.log_max_height
@@ -326,10 +357,14 @@ def verify_path_shapes(v, b):
     return dict(shapes)
 
 
-def transcript_steps(log_n, fc):
+def transcript_steps(log_n, fc, n_challenges=0, s2w=0):
     """Duplex steps of the prover's transcript (the verifier's schedule)."""
     sym = SymbolicChallenger()
     sym.observe(4)                       # trace commitment
+    for _ in range(n_challenges):        # stage-2 challenges
+        sym.sample_ext()
+    if s2w:
+        sym.observe(4)                   # stage-2 commitment
     sym.sample_ext()                     # alpha
     sym.observe(4)                       # quotient commitment
     sym.sample_ext()                     # zeta
@@ -344,13 +379,16 @@ def transcript_steps(log_n, fc):
     return len(sym.steps)
 
 
-def prove_path_shapes(log_n, fc, width, b, windows):
+def prove_path_shapes(log_n, fc, air, b, windows):
     """{kernel: {states per launch: launches}} of proving b traces of
-    2^log_n rows: the state-major kernel's transcript duplexes over the b
-    transcripts; the lane-major kernel's trace tree (sponge chunks, then one
-    compression per level), quotient tree (2 columns), FRI commit trees
-    (4 columns, one per phase) and `windows` grind windows."""
+    2^log_n rows of `air`: the state-major kernel's transcript duplexes
+    over the b transcripts; the lane-major kernel's trace tree (sponge
+    chunks, then one compression per level), [stage-2 tree (s2w
+    columns),] quotient tree (n_chunks * 2 columns), FRI commit trees (4
+    columns, one per phase) and `windows` grind windows."""
     log_max = log_n + fc.log_blowup
+    s2w, n_ch = air.stage2_width(), air.num_challenges()
+    n_chunks = 1 << log2_ceil(getattr(air, "quotient_degree", lambda: 1)())
     soa = Counter()
 
     def tree(log_h, w):
@@ -358,12 +396,53 @@ def prove_path_shapes(log_n, fc, width, b, windows):
         for t in range(log_h):
             soa[b << t] += 1
 
-    tree(log_max, width)
-    tree(log_max, 2)
+    tree(log_max, air.width())
+    if s2w:
+        tree(log_max, s2w)
+    tree(log_max, n_chunks * EXT_DEGREE)
     for log_folded in range(log_max - 1, fc.log_blowup - 1, -1):
         tree(log_folded, 4)
     soa[b * GRIND_WINDOW] += windows
-    return {AOS: {b: transcript_steps(log_n, fc)}, SOA: dict(soa)}
+    return {AOS: {b: transcript_steps(log_n, fc, n_ch, s2w)}, SOA: dict(soa)}
+
+
+def shape_config(air, log_n, fc):
+    """The P3Config that derive_config gives a proof of 2^log_n rows of
+    `air`: the verifier's shape, known before the proof exists."""
+    lqd = log2_ceil(getattr(air, "quotient_degree", lambda: 1)())
+    return P3Config(fri_config=fc, log_quotient_degree=lqd,
+                    log_trace_height=log_n, trace_width=air.width(),
+                    opening_matrix_log_max_height=log_n + fc.log_blowup,
+                    quotient_opened_values_len=EXT_DEGREE, degree_bits=log_n,
+                    stage2_width=air.stage2_width())
+
+
+def mmcs_groups(mm, device):
+    """The mixed-height fixture as verify_batch's inputs: the matrices'
+    opened rows merged by height, tallest first, in batch order (GL (Q,
+    L_g) each), their log-heights, the siblings GL (Q, D, 4), the indices
+    and the root."""
+    heights = mm["heights"]
+    order = sorted(range(len(heights)), key=lambda i: -heights[i])
+    by_h = {}
+    for i in order:
+        by_h.setdefault(heights[i], []).append(i)
+    rows = [gl.from_u64(np.asarray(
+        [[v for i in by_h[h] for v in opened[i]] for opened in mm["opened"]],
+        dtype=np.uint64), device) for h in sorted(by_h, reverse=True)]
+    logs = [h.bit_length() - 1 for h in sorted(by_h, reverse=True)]
+    sibs = gl.from_u64(np.asarray(mm["paths"], dtype=np.uint64), device)
+    index = torch.tensor(mm["indices"], dtype=torch.int64, device=device)
+    root = gl.from_u64(np.asarray(mm["root"], dtype=np.uint64), device)
+    return rows, logs, sibs, index, root
+
+
+def mmcs_path_shapes(rows, logs, q):
+    """{kernel: {states: launches}} of verify_batch on q lanes: each
+    group's sponge chunks, one compression per path level and one per
+    fold-in."""
+    chunks = sum(-(-r.shape[-1] // RATE) for r in rows)
+    return {AOS: {q: chunks + logs[0] + len(logs) - 1}, SOA: {}}
 
 
 def check_launches(path, got, shapes, split_max):
@@ -391,6 +470,16 @@ def tamper(proof, kind):
         fp.pow_witness += 1
     elif kind == "merkle_sibling":
         p.opening_proof.query_openings[17][0].opening_proof[3][2] ^= 1
+    elif kind == "stage2_sibling":
+        p.opening_proof.query_openings[17][1].opening_proof[3][2] ^= 1
+    elif kind == "stage2_leaf":
+        row = p.opening_proof.query_openings[23][1].opened_values[0]
+        row[0] = (row[0] + 1) % P
+    elif kind == "stage2_local":
+        c0, c1 = p.opened_values.stage2_local[0]
+        p.opened_values.stage2_local[0] = ((c0 + 1) % P, c1)
+    elif kind == "stage2_commit":
+        p.commitments.stage2.value[0] ^= 1
     elif kind == "fold_sibling":
         s = fp.query_proofs[5].commit_phase_openings[1]
         s.sibling_value = (s.sibling_value[0] ^ 1, s.sibling_value[1])
@@ -457,6 +546,92 @@ def device_summary(prof, wall_ms):
                                         key=lambda x: -x[1])[:12]}
 
 
+def verdict(r):
+    """The five verdict flags of a VerifyResult, as bools."""
+    return {k: bool(getattr(r, k)) for k in
+            ("ok", "pow_ok", "merkle_ok", "fold_ok", "quotient_ok")}
+
+
+def proof_digest(proof, v, cfg):
+    """The values a digest fixture holds a proof to, computed on the card:
+    the sha256 of its compact JSON, its commitments, and the verifier's
+    transcript (alpha, zeta, query indices, and a multi-stage AIR's
+    challenges)."""
+    text = compact(proof)
+    w = tree_map(lambda a: a[None], pack_witness(proof, cfg, DEVICE))
+    r = v.verify_witnesses(w)
+    smp = gl.to_u64(r["samples"][0]).tolist()
+    fp = proof.opening_proof.fri_proof
+    got = {
+        "sha256": hashlib.sha256(text.encode()).hexdigest(),
+        "bytes": len(text),
+        "trace_commit": proof.commitments.trace.value,
+        "quotient_commit": proof.commitments.quotient_chunks.value,
+        "phase_commits": [c.value for c in fp.commit_phase_commits],
+        "alpha": [smp[i] for i in v.alpha_idx],
+        "zeta": [smp[i] for i in v.zeta_idx],
+        "pow_witness": fp.pow_witness,
+        "query_indices": r["index"][0].tolist(),
+    }
+    if v.s2w:
+        got["stage2_commit"] = proof.commitments.stage2.value
+        got["challenges"] = [[smp[i0], smp[i1]] for i0, i1 in v.challenge_idx]
+    return got
+
+
+def timed_runs(prove_batch, traces):
+    """Three timed batch proofs, the last with stage events: (wall ms of
+    each, peak GB, stage ms)."""
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        clock = StageClock() if i == 2 else None
+        t0 = time.perf_counter()
+        prove_batch(traces, on_stage=clock)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return runs, torch.cuda.max_memory_allocated() / 1e9, clock.ms()
+
+
+def measure_prove(air, trace, fc, path, path_launches, path_shapes,
+                  split_max):
+    """Prove `trace` first and three more times (counted, the steady
+    latency), once with stage events and once under the profiler; check
+    the launches against the path's shape.  Returns (proof, report)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    proof = prove(air, trace, fc, device=DEVICE)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    text = compact(proof)
+    windows = proof.opening_proof.fri_proof.pow_witness // GRIND_WINDOW + 1
+    path_shapes[path] = prove_path_shapes(
+        log2_ceil(len(trace)), fc, air, 1, windows)
+    steady = []
+    for i in range(3):          # stage events on the last
+        clock = StageClock() if i == 2 else None
+        t0 = time.perf_counter()
+        again, path_launches[path] = counted(lambda: prove(
+            air, trace, fc, device=DEVICE, on_stage=clock))
+        steady.append((time.perf_counter() - t0) * 1e3)
+        check(compact(again) == text, f"{path}: proofs differ between runs")
+    check_launches(path, path_launches[path], path_shapes[path], split_max)
+    stage_ms = clock.ms()
+    dev, prof = device_summary(profile_device_time(
+        lambda: prove(air, trace, fc, device=DEVICE)), statistics.median(steady))
+    text_line = (
+        f"first proof {first_ms:.1f} ms, steady "
+        f"{statistics.median(steady):.1f} ms (median of 3); launches {AOS} "
+        f"{path_launches[path][AOS]}, {SOA} {path_launches[path][SOA]} "
+        f"({windows} grind windows); peak {peak_gb:.2f} GB; stage ms: "
+        + ", ".join(f"{k} {t:.1f}" for k, t in stage_ms.items()) + f"; {dev}")
+    return proof, text_line, {
+        "log_n": log2_ceil(len(trace)), "bytes": len(text),
+        "first_ms": first_ms, "steady_ms": steady, "stage_ms": stage_ms,
+        "launches": path_launches[path], "windows": windows,
+        "peak_allocated_gb": peak_gb, "profile": prof}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="write the measurements here as JSON")
@@ -466,7 +641,14 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    report = {}
+    report = {"phase_seconds": {}}
+    t_lap = [t_start]
+
+    def lap(phase):
+        """Record the wall seconds since the last phase ended."""
+        now = time.perf_counter()
+        report["phase_seconds"][phase] = now - t_lap[0]
+        t_lap[0] = now
     path_launches, path_shapes = {}, {}
 
     # ---- card
@@ -514,6 +696,7 @@ def main(argv=None):
                                    "registers_spills": regs,
                                    "split_max_states": split_max[kernel]}
 
+    lap("build")
     # ---- fixtures and the shapes every path launches
     with open(os.path.join(FIXTURES, "proof_fibonacci_expected.json")) as f:
         expected = json.load(f)
@@ -530,7 +713,32 @@ def main(argv=None):
     path_shapes["verify_batch"] = {AOS: verify_path_shapes(v, B), SOA: {}}
     w64 = proof.opening_proof.fri_proof.pow_witness
     path_shapes["prove_64"] = prove_path_shapes(
-        6, fc, 3, 1, w64 // GRIND_WINDOW + 1)
+        6, fc, FibonacciAir(), 1, w64 // GRIND_WINDOW + 1)
+    # the multi-stage paths' verifiers, from the shapes their proofs have
+    with open(os.path.join(FIXTURES, "mmcs_multi_height.json")) as f:
+        mm = json.load(f)
+    mm_dev = mmcs_groups(mm, DEVICE)
+    path_shapes["mmcs_multi"] = mmcs_path_shapes(mm_dev[0], mm_dev[1],
+                                                 len(mm["indices"]))
+    expected_ms = {}
+    for name in ("rlc", "multiset"):
+        with open(os.path.join(FIXTURES, f"proof_{name}64_expected.json")) as f:
+            expected_ms[name] = json.load(f)
+        check(FriConfig(**expected_ms[name]["fri_config"]) == fc,
+              f"{name} fixture made at another FriConfig")
+    v_rlc = get_verifier(RlcAir(), shape_config(RlcAir(), 6, fc), DEVICE)
+    path_shapes["verify_batch_rlc"] = {AOS: verify_path_shapes(v_rlc, B),
+                                       SOA: {}}
+    # every state count of the prover paths (the number of grind windows
+    # does not change the counts)
+    prove_runs = ((FibonacciAir(), 6, 1), (FibonacciAir(), 13, 1),
+                  (FibonacciAir(), LOG_N, 1), (FibonacciAir(), 6, B_PROVE),
+                  (RlcAir(), 6, 1), (MultisetAir(), 6, 1),
+                  (RlcAir(), LOG_N, 1), (MultisetAir(), LOG_N, 1),
+                  (RlcAir(), 6, B_PROVE))
+    prove_sizes = {k: sorted(set().union(*(
+        prove_path_shapes(log_n, fc, a, b, 1)[k] for a, log_n, b in prove_runs)))
+        for k in (AOS, SOA)}
 
     # ---- state-major kernel against its plain version
     err_aos = 0
@@ -548,8 +756,10 @@ def main(argv=None):
         check(gl.to_u64(out).tolist() == [k["output"] for k in kat],
               f"state-major kernel (split={variant}) disagrees with the "
               f"fixture's known answers")
-    verify_sizes = sorted(set(path_shapes["verify_single"][AOS])
-                          | set(path_shapes["verify_batch"][AOS]))
+    verify_sizes = sorted(set().union(*(
+        path_shapes[p][AOS] for p in ("verify_single", "verify_batch",
+                                      "verify_batch_rlc", "mmcs_multi")))
+        | set(prove_sizes[AOS]))
     for n in verify_sizes:
         err_aos = max(err_aos, aos_vs_plain(random_states(n, 7 * n + 1)))
     check(err_aos == 0, f"state-major kernel differs from the plain version "
@@ -558,9 +768,10 @@ def main(argv=None):
           f"bit-equal to the plain version at N={','.join(map(str, sizes))}, "
           f"on both sides of the crossover (N={','.join(map(str, edge_n[AOS]))}"
           f"), on {edges.shape[0]} edge-value states, on {len(kat)} known "
-          f"answers and at the verifier paths' "
+          f"answers and at the verifier, MMCS and transcript paths' "
           f"N={','.join(map(str, verify_sizes))}")
 
+    lap("kernel")
     # ---- one proof through verify_proof
     r = verify_proof(proof, FibonacciAir(), fc, device=DEVICE)
     for k, want in expected["verdict"].items():
@@ -606,6 +817,7 @@ def main(argv=None):
                         "launches": path_launches["verify_single"],
                         "profile": prof1}
 
+    lap("single")
     # ---- a batch of B proofs through BatchVerifier
     bv = BatchVerifier(FibonacciAir(), cfg, device=DEVICE)
     w = pack_witness(proof, cfg, DEVICE)
@@ -649,12 +861,10 @@ def main(argv=None):
                        "launches": path_launches["verify_batch"],
                        "profile": profb}
 
+    lap("batch")
     # ---- lane-major kernel against its plain version and the other kernel
-    # every state count of the four prover paths (the number of grind
-    # windows does not change the counts)
-    prover_sizes = sorted(set().union(*(
-        prove_path_shapes(log_n, fc, 3, b, 1)[SOA]
-        for log_n, b in ((6, 1), (13, 1), (LOG_N, 1), (6, B_PROVE)))))
+    # at every state count of the prover paths
+    prover_sizes = prove_sizes[SOA]
     err_soa = 0
     for n in sizes + edge_n[SOA]:
         err_soa = max(err_soa, soa_vs_plain_and_aos(
@@ -681,6 +891,7 @@ def main(argv=None):
           f"on the known answers and at the prover paths' "
           f"N={','.join(map(str, prover_sizes))}")
 
+    lap("kernel-soa")
     # ---- prove fib(64): the fixture, byte for byte
     air = FibonacciAir()
     p64, path_launches["prove_64"] = counted(
@@ -694,80 +905,45 @@ def main(argv=None):
           f"{AOS} {path_launches['prove_64'][AOS]}, {SOA} "
           f"{path_launches['prove_64'][SOA]} (as the shape gives)")
 
+    lap("prove-64")
     # ---- prove fib(2^13): the JAX package's digest
     p8k = prove(air, fibonacci_trace(1 << 13), fc, device=DEVICE)
-    text = compact(p8k)
-    r8k = verify_proof(p8k, air, fc, device=DEVICE)
-    got = {
-        "sha256": hashlib.sha256(text.encode()).hexdigest(),
-        "trace_commit": p8k.commitments.trace.value,
-        "quotient_commit": p8k.commitments.quotient_chunks.value,
-        "phase_commits": [c.value for c in
-                          p8k.opening_proof.fri_proof.commit_phase_commits],
-        "alpha": ext_int(r8k.alpha), "zeta": ext_int(r8k.zeta),
-        "pow_witness": p8k.opening_proof.fri_proof.pow_witness,
-        "query_indices": r8k.query_indices.tolist(),
-    }
+    cfg8k = derive_config(p8k, fc)
+    got = proof_digest(p8k, get_verifier(air, cfg8k, DEVICE), cfg8k)
     for k, val in got.items():
         check(val == expected_8192[k], f"fib(2^13) {k} differs from the JAX "
               f"package's")
-    check(bool(r8k.ok), "fib(2^13) proof rejected")
-    print(f"[prove-8192] fib(2^13) proof ({len(text)} bytes) equal to the JAX "
-          f"package's: sha256 {got['sha256'][:16]}..., commitments, alpha, "
+    check(verdict(verify_proof(p8k, air, fc, device=DEVICE))["ok"],
+          "fib(2^13) proof rejected")
+    print(f"[prove-8192] fib(2^13) proof ({got['bytes']} bytes) equal to the "
+          f"JAX package's: sha256 {got['sha256'][:16]}..., commitments, alpha, "
           f"zeta, PoW witness {got['pow_witness']}, query indices; accepted")
 
+    lap("prove-8192")
     # ---- prove fib(2^20)
     t0 = time.perf_counter()
     trace = np.asarray(fibonacci_trace(1 << LOG_N), dtype=np.uint64)
     setup_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    big = prove(air, trace, fc, device=DEVICE)
-    first_ms = (time.perf_counter() - t0) * 1e3
-    peak_prove_gb = torch.cuda.max_memory_allocated() / 1e9
-    big_text = compact(big)
-    windows = big.opening_proof.fri_proof.pow_witness // GRIND_WINDOW + 1
-    path_shapes["prove"] = prove_path_shapes(LOG_N, fc, 3, 1, windows)
-    steady = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        again, path_launches["prove"] = counted(
-            lambda: prove(air, trace, fc, device=DEVICE))
-        steady.append((time.perf_counter() - t0) * 1e3)
-        check(compact(again) == big_text, "fib(2^20) proofs differ between runs")
-    check_launches("prove", path_launches["prove"], path_shapes["prove"],
-                   split_max)
-    clock = StageClock()
-    prove(air, trace, fc, device=DEVICE, on_stage=clock)
-    prove_stage_ms = clock.ms()
-    devp, profp = device_summary(profile_device_time(
-        lambda: prove(air, trace, fc, device=DEVICE)), statistics.median(steady))
-    rb = verify_proof(big, air, fc, device=DEVICE)
-    check(bool(rb.ok), "fib(2^20) proof rejected by verify_proof")
-    rt = verify_proof(tamper(big, "merkle_sibling"), air, fc, device=DEVICE)
-    check(not bool(rt.ok) and not bool(rt.merkle_ok),
+    big, line, report["prove"] = measure_prove(
+        air, trace, fc, "prove", path_launches, path_shapes, split_max)
+    report["prove"]["trace_setup_s"] = setup_s
+    check(verdict(verify_proof(big, air, fc, device=DEVICE))["ok"],
+          "fib(2^20) proof rejected by verify_proof")
+    rt = verdict(verify_proof(tamper(big, "merkle_sibling"), air, fc,
+                              device=DEVICE))
+    check(not rt["ok"] and not rt["merkle_ok"],
           "fib(2^20) proof with a flipped Merkle sibling accepted")
-    print(f"[prove] fib(2^{LOG_N}) at FriConfig(1, 100, 16): {len(big_text)} "
-          f"bytes, accepted by verify_proof, flipped Merkle sibling rejected; "
-          f"first proof {first_ms:.1f} ms, steady {statistics.median(steady):.1f}"
-          f" ms (median of 3; trace made in {setup_s:.1f} s beforehand); "
-          f"launches {AOS} {path_launches['prove'][AOS]}, {SOA} "
-          f"{path_launches['prove'][SOA]} ({windows} grind windows); peak "
-          f"{peak_prove_gb:.2f} GB; stage ms: "
-          + ", ".join(f"{k} {t:.1f}" for k, t in prove_stage_ms.items())
-          + f"; {devp}")
-    report["prove"] = {"log_n": LOG_N, "bytes": len(big_text),
-                       "first_ms": first_ms, "steady_ms": steady,
-                       "trace_setup_s": setup_s, "stage_ms": prove_stage_ms,
-                       "launches": path_launches["prove"], "windows": windows,
-                       "peak_allocated_gb": peak_prove_gb, "profile": profp}
+    print(f"[prove] fib(2^{LOG_N}) at FriConfig(1, 100, 16): "
+          f"{report['prove']['bytes']} bytes, accepted by verify_proof, "
+          f"flipped Merkle sibling rejected; trace made in {setup_s:.1f} s "
+          f"beforehand; " + line)
 
+    lap("prove")
     # ---- BatchProver on B_PROVE copies of fib(64), one lane tampered
     bad_lane = B_PROVE // 3
     traces = np.asarray([fibonacci_trace(64)] * B_PROVE, dtype=np.uint64)
     traces[bad_lane, 10, 2] = (int(traces[bad_lane, 10, 2]) + 1) % P
     bp = BatchProver(air, 6, fc, device=DEVICE)
-    proofs = bp.prove(traces)
     proofs, path_launches["batch_prove"] = counted(lambda: bp.prove(traces))
     for i, pr in enumerate(proofs):
         if i != bad_lane:
@@ -781,7 +957,8 @@ def main(argv=None):
           "tampered lane not rejected by its quotient check alone")
     bp_windows = max(pr.opening_proof.fri_proof.pow_witness
                      for pr in proofs) // GRIND_WINDOW + 1
-    path_shapes["batch_prove"] = prove_path_shapes(6, fc, 3, B_PROVE, bp_windows)
+    path_shapes["batch_prove"] = prove_path_shapes(6, fc, air, B_PROVE,
+                                                   bp_windows)
     check_launches("batch_prove", path_launches["batch_prove"],
                    path_shapes["batch_prove"], split_max)
     one = path_launches["prove_64"]
@@ -789,16 +966,7 @@ def main(argv=None):
           and path_launches["batch_prove"][SOA] - bp_windows
           == one[SOA] - path_shapes["prove_64"][SOA][GRIND_WINDOW],
           "a batch launched the kernels more often than one proof")
-    runs = []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
-        t0 = time.perf_counter()
-        bp.prove(traces)
-        runs.append((time.perf_counter() - t0) * 1e3)
-    peak_bp_gb = torch.cuda.max_memory_allocated() / 1e9
-    clock = StageClock()
-    bp.prove(traces, on_stage=clock)
-    bp_stage_ms = clock.ms()
+    runs, peak_bp_gb, bp_stage_ms = timed_runs(bp.prove, traces)
     ms_bp = statistics.median(runs)
     devbp, profbp = device_summary(profile_device_time(
         lambda: bp.prove(traces)), ms_bp)
@@ -819,6 +987,244 @@ def main(argv=None):
                              "launches": path_launches["batch_prove"],
                              "profile": profbp}
 
+    lap("batch-prove")
+    # ---- multi-height MMCS verify_batch on the fixture's openings
+    rows, logs, sibs, index, root = mm_dev
+    q = len(mm["indices"])
+    ok, path_launches["mmcs_multi"] = counted(
+        lambda: mmcs_verify_batch(root, rows, logs, index, sibs))
+    check(bool(ok.all()), "mmcs-multi: an opening of the fixture rejected")
+    check_launches("mmcs_multi", path_launches["mmcs_multi"],
+                   path_shapes["mmcs_multi"], split_max)
+    # tampers, each on a lane of its own: a sibling flipped just below each
+    # fold-in (the walk's last compression before it), a row value of each
+    # short group changed
+    fold_levels = [logs[0] - lh for lh in logs[1:]]
+    bad_sibs = tree_map(torch.clone, sibs)
+    bad_rows = tree_map(torch.clone, rows)
+    want = torch.ones(q, dtype=torch.bool)
+    lane = 0
+    for t in fold_levels:
+        bad_sibs.lo[lane, t - 1, 2] ^= 1
+        want[lane] = False
+        lane += 7
+    for g in range(1, len(rows)):
+        bad_rows[g].lo[lane, 0] = (bad_rows[g].lo[lane, 0] + 1) & 0xFFFFFFFF
+        want[lane] = False
+        lane += 7
+    got_dev = mmcs_verify_batch(root, bad_rows, logs, index, bad_sibs).cpu()
+    check(torch.equal(got_dev, want), "mmcs-multi: tamper verdicts differ")
+    cpu = mmcs_groups(mm, "cpu")
+    got_cpu = mmcs_verify_batch(
+        cpu[4], tree_map(torch.Tensor.cpu, bad_rows), cpu[1], cpu[3],
+        tree_map(torch.Tensor.cpu, bad_sibs))
+    check(torch.equal(got_cpu, got_dev) and bool(
+        mmcs_verify_batch(cpu[4], cpu[0], cpu[1], cpu[3], cpu[2]).all()),
+        "mmcs-multi: the card's verdicts differ from the plain path's")
+    mm_ms = cuda_ms(lambda: mmcs_verify_batch(root, rows, logs, index, sibs), 20)
+    print(f"[mmcs-multi] heights {mm['heights']}, widths {mm['widths']}: "
+          f"{q} openings accepted; {len(fold_levels)} flipped siblings (below "
+          f"the fold-ins after compressions {fold_levels}) and "
+          f"{len(rows) - 1} changed rows of the short groups rejected, "
+          f"verdicts equal to the plain path on the CPU; "
+          f"{path_launches['mmcs_multi'][AOS]} launches of {q} states; "
+          f"{mm_ms:.2f} ms per call")
+    report["mmcs_multi"] = {"queries": q, "ms": mm_ms,
+                            "launches": path_launches["mmcs_multi"],
+                            "fold_levels": fold_levels}
+
+    lap("mmcs-multi")
+    # ---- multi-stage 64-row proofs: the fixtures' digests
+    ms_airs = {"rlc": RlcAir(), "multiset": MultisetAir()}
+    ms_proofs = {}
+    for name, ms_air in ms_airs.items():
+        exp = expected_ms[name]
+        trace = np.asarray(exp["trace"], dtype=np.uint64)
+        path = f"prove_{name}_64"
+        pr, path_launches[path] = counted(
+            lambda: prove(ms_air, trace, fc, device=DEVICE))
+        cfg_ms = derive_config(pr, fc)
+        check(cfg_ms == shape_config(ms_air, 6, fc),
+              f"{path}: proof shape differs from the AIR's")
+        got = proof_digest(pr, get_verifier(ms_air, cfg_ms, DEVICE), cfg_ms)
+        for k, val in got.items():
+            check(val == exp[k], f"{path}: {k} differs from the fixture")
+        r = verify_proof(pr, ms_air, fc, device=DEVICE)
+        check(verdict(r) == {k: v for k, v in exp["verdict"].items()
+                             if k != "shape_ok"} and r.shape_ok,
+              f"{path}: verify_proof verdict differs from the fixture's")
+        path_shapes[path] = prove_path_shapes(
+            6, fc, ms_air, 1, pr.opening_proof.fri_proof.pow_witness
+            // GRIND_WINDOW + 1)
+        check_launches(path, path_launches[path], path_shapes[path], split_max)
+        ms_proofs[name] = pr
+        print(f"[prove-{name}-64] {ms_air.name()}Air, 64 rows: proof "
+              f"({got['bytes']} bytes) equal to the JAX package's digest "
+              f"(sha256 {got['sha256'][:16]}..., trace, stage-2, quotient "
+              f"and phase commitments, {len(got['challenges'])} challenges, "
+              f"alpha, zeta, PoW witness {got['pow_witness']}, query indices); "
+              f"accepted by verify_proof; launches {AOS} "
+              f"{path_launches[path][AOS]}, {SOA} {path_launches[path][SOA]} "
+              f"(as the shape gives)")
+
+    lap("prove-ms-64")
+    # ---- BatchVerifier on copies of the RLC proof, five lanes tampered
+    rlc64 = ms_proofs["rlc"]
+    cfg_rlc = derive_config(rlc64, fc)
+    bv_rlc = BatchVerifier(RlcAir(), cfg_rlc, device=DEVICE)
+    check(bv_rlc.base is v_rlc, "the RLC verifier was not the shape's")
+    kinds = TAMPERED + ("stage2_leaf",)
+    lanes = [5, B // 5, 2 * B // 5, 3 * B // 5, B - 2]
+    w_rlc = pack_witness(rlc64, cfg_rlc, DEVICE)
+    bad = {lane: pack_witness(tamper(rlc64, kind), cfg_rlc, DEVICE)
+           for lane, kind in zip(lanes, kinds)}
+    ws_rlc = stack_witnesses([bad.get(b, w_rlc) for b in range(B)])
+    want = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    want[lanes] = False
+
+    def verify_batch_rlc(on_stage=None):
+        return bv_rlc.verify_witnesses(ws_rlc, on_stage)
+
+    ok, path_launches["verify_batch_rlc"] = counted(verify_batch_rlc)
+    check(torch.equal(ok, want), "batch-rlc verdicts differ")
+    check_launches("verify_batch_rlc", path_launches["verify_batch_rlc"],
+                   path_shapes["verify_batch_rlc"], split_max)
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        check(torch.equal(verify_batch_rlc(), want), "batch-rlc verdicts differ")
+        runs.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    clock = StageClock()
+    verify_batch_rlc(clock)
+    stage_ms = clock.ms()
+    ms_batch = statistics.median(runs)
+    devb, profb = device_summary(profile_device_time(verify_batch_rlc), ms_batch)
+    qps = B * v_rlc.Q / (ms_batch / 1e3)
+    print(f"[batch-rlc] B={B} x Q={v_rlc.Q} RlcAir proofs (3 batches per "
+          f"query): verdicts exact ({len(lanes)} tampered lanes: "
+          f"{', '.join(kinds)}); {path_launches['verify_batch_rlc'][AOS]} "
+          f"kernel launches; {ms_batch:.1f} ms per batch (median of 3), "
+          f"{qps:.0f} queries/s; peak {peak_gb:.2f} GB; stage ms: "
+          + ", ".join(f"{k} {t:.1f}" for k, t in stage_ms.items())
+          + f"; {devb}")
+    report["batch_rlc"] = {"B": B, "Q": v_rlc.Q, "ms_runs": runs,
+                           "ms": ms_batch, "queries_per_s": qps,
+                           "peak_allocated_gb": peak_gb, "stage_ms": stage_ms,
+                           "launches": path_launches["verify_batch_rlc"],
+                           "profile": profb}
+
+    lap("batch-rlc")
+    # ---- RlcAir at 2^LOG_N rows
+    n_big = 1 << LOG_N
+    rng = np.random.default_rng(0x41C20)
+    trace = rng.integers(0, P, size=(n_big, 2), dtype=np.uint64)
+    big, line, report["prove_rlc"] = measure_prove(
+        RlcAir(), trace, fc, "prove_rlc", path_launches, path_shapes,
+        split_max)
+    check(verdict(verify_proof(big, RlcAir(), fc, device=DEVICE))["ok"],
+          "RLC 2^20 proof rejected by verify_proof")
+    flags = {}
+    for kind in ("stage2_sibling", "stage2_local", "stage2_commit"):
+        flags[kind] = verdict(verify_proof(tamper(big, kind), RlcAir(), fc,
+                                           device=DEVICE))
+        check(not flags[kind]["ok"], f"RLC 2^20 proof with {kind} accepted")
+    check(not flags["stage2_sibling"]["merkle_ok"],
+          "RLC 2^20 flipped stage-2 sibling passed the Merkle check")
+    report["prove_rlc"]["tampers"] = flags
+    print(f"[prove-rlc] RlcAir at 2^{LOG_N} rows, FriConfig(1, 100, 16): "
+          f"{report['prove_rlc']['bytes']} bytes, accepted by verify_proof; a "
+          f"flipped stage-2 sibling, a changed stage2_local value and a "
+          f"changed stage-2 commitment rejected; " + line)
+
+    lap("prove-rlc")
+    # ---- MultisetAir at 2^LOG_N pairs: side B a permutation of side A
+    rng = np.random.default_rng(0x5E720)
+    va = rng.integers(0, P, size=n_big, dtype=np.uint64)
+    perm = rng.permutation(n_big)
+    tags = np.arange(1, n_big + 1, dtype=np.uint64)
+    trace = np.stack([tags, va, tags[perm], va[perm]], axis=1)
+    big, line, report["prove_multiset"] = measure_prove(
+        MultisetAir(), trace, fc, "prove_multiset", path_launches,
+        path_shapes, split_max)
+    check(verdict(verify_proof(big, MultisetAir(), fc, device=DEVICE))["ok"],
+          "multiset 2^20 proof rejected by verify_proof")
+    trace[n_big // 3, 3] = (int(trace[n_big // 3, 3]) + 1) % P
+    not_perm = verdict(verify_proof(
+        prove(MultisetAir(), trace, fc, device=DEVICE), MultisetAir(), fc,
+        device=DEVICE))
+    check(not_perm == {"ok": False, "pow_ok": True, "merkle_ok": True,
+                       "fold_ok": True, "quotient_ok": False},
+          f"multiset 2^20 non-permutation not rejected by its quotient check "
+          f"alone: {not_perm}")
+    report["prove_multiset"]["non_permutation"] = not_perm
+    print(f"[prove-multiset] MultisetAir at 2^{LOG_N} pairs (two quotient "
+          f"chunks): {report['prove_multiset']['bytes']} bytes, accepted by "
+          f"verify_proof; side B with one value changed proves and is "
+          f"rejected by its quotient check alone; " + line)
+    del trace, va, perm, tags, big
+    torch.cuda.empty_cache()
+
+    lap("prove-multiset")
+    # ---- BatchProver on B_PROVE distinct RLC traces, one lane faulty.  A
+    # changed trace still proves RlcAir (its stage-2 column is built from
+    # whatever trace is given), so the faulty lane's stage-2 column is
+    # changed at one row instead, by a prover that is wrong on that lane.
+    bad_lane = B_PROVE // 3
+    rng = np.random.default_rng(0xBA7C)
+    traces = rng.integers(0, P, size=(B_PROVE, 64, 2), dtype=np.uint64)
+    traces[0] = np.asarray(expected_ms["rlc"]["trace"], dtype=np.uint64)
+
+    class FaultyLaneRlc(RlcAir):
+        def build_stage2_device(self, cols, challenges):
+            s2 = super().build_stage2_device(cols, challenges)
+            s2.lo[bad_lane, 0, 9] ^= 1
+            return s2
+
+    bp_rlc = BatchProver(FaultyLaneRlc(), 6, fc, device=DEVICE)
+    proofs, path_launches["batch_prove_rlc"] = counted(
+        lambda: bp_rlc.prove(traces))
+    cfg_rlc_b = derive_config(proofs[0], fc)
+    got = proof_digest(proofs[0], v_rlc, cfg_rlc_b)
+    check(got["sha256"] == expected_ms["rlc"]["sha256"],
+          "batch-prove-rlc lane 0 differs from the fixture")
+    bv_all = BatchVerifier(RlcAir(), cfg_rlc_b, device=DEVICE)
+    oks = bv_all.verify(proofs)
+    want = torch.ones(B_PROVE, dtype=torch.bool, device=DEVICE)
+    want[bad_lane] = False
+    check(torch.equal(oks, want),
+          "batch-prove-rlc: BatchVerifier verdicts differ")
+    rbad = verdict(verify_proof(proofs[bad_lane], RlcAir(), fc, device=DEVICE))
+    check(rbad == {"ok": False, "pow_ok": True, "merkle_ok": True,
+                   "fold_ok": True, "quotient_ok": False},
+          f"batch-prove-rlc faulty lane not rejected by its quotient check "
+          f"alone: {rbad}")
+    bp_windows = max(pr.opening_proof.fri_proof.pow_witness
+                     for pr in proofs) // GRIND_WINDOW + 1
+    path_shapes["batch_prove_rlc"] = prove_path_shapes(
+        6, fc, RlcAir(), B_PROVE, bp_windows)
+    check_launches("batch_prove_rlc", path_launches["batch_prove_rlc"],
+                   path_shapes["batch_prove_rlc"], split_max)
+    runs, peak_gb, stage_ms = timed_runs(bp_rlc.prove, traces)
+    ms_bp = statistics.median(runs)
+    print(f"[batch-prove-rlc] B={B_PROVE} distinct 64-row RlcAir traces: lane "
+          f"0 equal to the fixture's digest; all {B_PROVE} proofs in one "
+          f"BatchVerifier call, {B_PROVE - 1} accepted, lane {bad_lane} "
+          f"(stage-2 column changed at one row) rejected by its quotient "
+          f"check alone; {ms_bp:.1f} ms per batch (median of 3), "
+          f"{B_PROVE / ms_bp * 1e3:.1f} proofs/s; peak {peak_gb:.2f} GB; "
+          f"launches {AOS} {path_launches['batch_prove_rlc'][AOS]}, {SOA} "
+          f"{path_launches['batch_prove_rlc'][SOA]} ({bp_windows} grind "
+          f"windows); stage ms: "
+          + ", ".join(f"{k} {t:.1f}" for k, t in stage_ms.items()))
+    report["batch_prove_rlc"] = {
+        "B": B_PROVE, "ms_runs": runs, "ms": ms_bp,
+        "proofs_per_s": B_PROVE / ms_bp * 1e3, "peak_allocated_gb": peak_gb,
+        "stage_ms": stage_ms, "windows": bp_windows,
+        "launches": path_launches["batch_prove_rlc"]}
+
+    lap("batch-prove-rlc")
     # ---- each kernel at each path's shapes
     clk_hz = max_sm_mhz * 1e6
     timed = {}
@@ -938,6 +1344,7 @@ def main(argv=None):
                 for var, m in report["build"][kernel]["sass"].items()},
         })
     report["kernels"] = kernel_rows
+    lap("timing")
     report["seconds"] = time.perf_counter() - t_start
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

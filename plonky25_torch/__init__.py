@@ -1,8 +1,10 @@
 """plonky25_torch: the Plonky3 STARK verifier and prover of plonky25_tpu,
 ported to PyTorch and CUDA for NVIDIA Hopper.
 
-It verifies proofs of single-stage GF(p^2) AIRs (FibonacciAir), one at a
-time (`verify_proof`) or in batches (`parallel.BatchVerifier`), and proves
+It verifies proofs of GF(p^2) AIRs, single-stage (FibonacciAir) and
+multi-stage (RlcAir, MultisetAir: a second matrix committed after
+challenges drawn from the trace commitment), one at a time
+(`verify_proof`) or in batches (`parallel.BatchVerifier`), and proves
 them, one at a time (`prover.prove`) or in batches (`prover.BatchProver`).
 Field arithmetic is PyTorch on int64 limb tensors; every Poseidon2
 permutation on a CUDA tensor runs a hand-written kernel: csrc/poseidon2.cu

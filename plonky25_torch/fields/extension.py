@@ -143,7 +143,8 @@ class Ops:
     """GF(p^2) ops for the AIR folder (air.VerifierConstraintFolder).
 
     `shape` is the evaluation-point shape: the proof axis (B,) in the
-    verifier, which folds every proof of a batch at its own zeta.  Each
+    verifier, which folds every proof of a batch at its own zeta, and
+    (B, q) in the prover, which folds over the quotient coset.  Each
     constraint has exactly that shape; the vector constraints of wide AIRs
     (leading constraint axes) come with those AIRs in a later slice."""
 
@@ -172,6 +173,14 @@ class Ops:
         return GL2(gl.full(self._shape, int(b), self._device),
                    gl.zeros(self._shape, self._device))
 
+    @staticmethod
+    def from_parts(a: GL2, b: GL2) -> GL2:
+        """a + X*b: two base columns (a, b) viewed as one GF(p^2) value.
+        On the quotient coset a and b have c1 = 0 and this is (a0, b0); at
+        an extension point zeta the openings are full extension values and
+        X*b = (7*b1, b0) keeps the algebra consistent."""
+        return GL2(gl.add(a.c0, _mul_w(b.c1)), gl.add(a.c1, b.c0))
+
     def fold_constraints(self, alpha: GL2, constraints) -> GL2:
         """acc = acc*alpha + c_i in recording order (air.rs:63-69)."""
         acc = self.zero()
@@ -182,3 +191,41 @@ class Ops:
                     f"shape {self._shape}: vector constraints are not ported")
             acc = add(mul(acc, alpha), c)
         return acc
+
+
+def concatenate(elems, dim=0) -> GL2:
+    return GL2(gl.concatenate([e.c0 for e in elems], dim),
+               gl.concatenate([e.c1 for e in elems], dim))
+
+
+def _shift_back(x: GL2, s: int, fill: GL2) -> GL2:
+    """x[..., i - s] along the last axis, `fill` (broadcast) for i < s."""
+    head = broadcast_to(fill[..., None], (*x.shape[:-1], s))
+    return concatenate([head, x[..., :-s]], dim=-1)
+
+
+def prefix_product(x: GL2) -> GL2:
+    """Running products along the last axis, z[i] = x[0] * ... * x[i], in
+    log2(n) Hillis-Steele steps: z[i] *= z[i - 2^k].  The field is exact,
+    so this equals the sequential product bit for bit."""
+    n, s = x.shape[-1], 1
+    one = ones(x.shape[:-1], x.c0.device)
+    while s < n:
+        x = mul(x, _shift_back(x, s, one))
+        s *= 2
+    return x
+
+
+def prefix_affine(gamma: GL2, r: GL2) -> GL2:
+    """z[i] = gamma * z[i - 1] + r[i] along the last axis, z[-1] = 0, in
+    log2(n) Hillis-Steele steps: z[i] += gamma^(2^k) * z[i - 2^k], with
+    gamma^(2^k) by repeated squaring.  gamma: GL2 of r's leading shape.
+    Equal to the sequential recurrence bit for bit (exact field)."""
+    n, s = r.shape[-1], 1
+    zero = zeros(r.shape[:-1], r.c0.device)
+    g = gamma
+    while s < n:
+        r = add(r, mul(g[..., None], _shift_back(r, s, zero)))
+        g = square(g)
+        s *= 2
+    return r

@@ -79,6 +79,47 @@ def verify_batch_single(commit: GL, leaf_rows: GL, index: torch.Tensor,
     return gl.eq(root, gl.broadcast_to(commit, root.shape)).all(dim=-1)
 
 
+def verify_batch(commit: GL, group_rows, group_log_heights, index: torch.Tensor,
+                 siblings: GL):
+    """General multi-height MMCS verify_batch (commit.rs:62-129), batched
+    over a lane axis; the counterpart of plonky25_tpu.ops.sponge.verify_batch.
+
+    The path climbs from the tallest matrices' leaves; when the climbing
+    node reaches a shorter group's padded height, that group's leaf digest
+    folds in with one extra compression (commit.rs:105-123).  Which level
+    folds which group depends only on the heights, so the walk is a static
+    schedule: `merkle_path` over the sibling levels between fold-ins, one
+    `compress` at each fold-in.
+
+    commit: GL (4,) or (N, 4).
+    group_rows: per height group, tallest first, the group's matrices'
+        opened rows side by side, GL (N, L_g); matrices of equal padded
+        height are one group, in batch order (commit.rs:72-76, 114-117).
+    group_log_heights: the groups' padded log-heights, strictly
+        decreasing; group 0's equals the path depth.
+    index: int64 (N,); siblings: GL (N, D, 4).  Returns ok: bool (N,)."""
+    D = siblings.shape[-2]
+    lh0 = group_log_heights[0]
+    if lh0 != D:
+        raise ValueError(f"path depth {D} != tallest log height {lh0}")
+    if (list(group_log_heights) != sorted(group_log_heights, reverse=True)
+            or len(set(group_log_heights)) != len(group_log_heights)):
+        raise ValueError("group heights must be strictly decreasing (merge "
+                         "matrices of equal padded height into one group)")
+    digests = [hash_rows(r) for r in group_rows]
+    # group g folds in after compression number lh0 - lh_g (commit.rs:107-117)
+    fold_at = {lh0 - lh: gi
+               for gi, lh in enumerate(group_log_heights[1:], start=1)}
+    root, idx, t0 = digests[0], index, 0
+    for t in sorted(set(fold_at) | {D}):
+        if t > t0:
+            root, idx = merkle_path(root, idx, siblings[..., t0:t, :])
+        if t in fold_at:
+            root = compress(root, digests[fold_at[t]])
+        t0 = t
+    return gl.eq(root, gl.broadcast_to(commit, root.shape)).all(dim=-1)
+
+
 def _lanes_first(x: GL) -> GL:
     """View planes (..., k, n) as (k, ..., n)."""
     return GL(x.lo.movedim(-2, 0), x.hi.movedim(-2, 0))

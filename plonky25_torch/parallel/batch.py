@@ -4,7 +4,9 @@ plonky25_tpu/parallel/batch.py).
 B proofs are packed, stacked on a leading proof axis and verified by the
 verifier's stages in one pass: the hash stages flatten (B, Q) into one lane
 axis, so each sponge chunk and each path level is one Poseidon2 kernel
-launch for the whole batch.
+launch for the whole batch.  A multi-stage AIR's witnesses carry
+`stage2_local`/`stage2_next` and a third batch opening per query, which
+stack like the other fields.
 """
 
 from __future__ import annotations

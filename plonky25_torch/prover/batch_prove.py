@@ -3,8 +3,10 @@ plonky25_tpu/prover/batch_prove.py.
 
 Every stage of TorchProver already takes a leading proof axis, so the batch
 runs the single prover's code on (B, W, H) columns: B transcripts advance
-together in one DeviceChallenger (values never cross proofs), each tree
-level of all B trees is one lane-major Poseidon2 launch, and the PoW grind
+together in one DeviceChallenger (values never cross proofs), a
+multi-stage AIR's stage-2 builder scans each proof's rows along the last
+axis with the proof's own challenges, each tree level of all B trees is
+one lane-major Poseidon2 launch, and the PoW grind
 searches all B witnesses in shared windows with each proof's first hit
 kept (the witness order of the sequential grind).  A batch therefore
 launches each kernel as often as one proof does, apart from grind windows:

@@ -6,6 +6,9 @@ Proofs are bit-identical to the JAX package's and the int oracle's
 
   * `_commit_trace_fn`: the trace's coset LDE in bit-reversed order, kept
     as columns (B, W, N), the layout the lane-major Merkle trees take;
+  * `_stage2_cols`: a multi-stage AIR's stage-2 columns, from the trace and
+    the challenges sampled after its commitment (committed like the
+    trace);
   * `_quotient_fn`: the AIR's constraint fold over the quotient coset,
     divided by the vanishing polynomial;
   * `_commit_chunks_fn`: the quotient chunks' LDEs as base columns;
@@ -24,10 +27,10 @@ the device and cached per prover instance.  The transcript stays on the
 device until the grind's first `found` check, and the proof is assembled
 from one device-to-host copy.
 
-Not ported here: the JAX prover's multi-stage (stage-2) branches, its
-column chunking, quotient column groups and strided quotient segmentation
-for S > 1, the column slabs of the opened-value and reduced-opening stages
-(memory strategies for 2633-column AIRs), `lde_mesh` and `warmup`.
+Not ported here: the JAX prover's column chunking, quotient column groups
+and strided quotient segmentation for S > 1, the column slabs of the
+opened-value and reduced-opening stages (memory strategies for 2633-column
+AIRs), `lde_mesh` and `warmup`.
 """
 
 from __future__ import annotations
@@ -68,28 +71,32 @@ GRIND_WINDOW = 1 << 16
 
 
 class _Main:
-    """The folder's view of the trace at the quotient points."""
+    """The folder's view of the trace (and the stage-2 columns) at the
+    quotient points."""
 
-    def __init__(self, trace_local, trace_next):
+    def __init__(self, trace_local, trace_next, stage2_local=None,
+                 stage2_next=None):
         self.trace_local = trace_local
         self.trace_next = trace_next
+        self.stage2_local = stage2_local
+        self.stage2_next = stage2_next
         self.quotient_chunks = []
 
 
 class TorchProver:
-    """Shape-specialized prover for single-stage GF(p^2) AIRs; tables are
-    cached per instance."""
+    """Shape-specialized prover for GF(p^2) AIRs, single- or multi-stage;
+    tables are cached per instance."""
 
     def __init__(self, air: Air, log_n: int, fri_config: FriConfig,
                  device="cuda"):
         self.device = resolve_device(device)
         check_multistage_consistency(air)
-        if air.stage2_width() or air.num_challenges():
-            raise NotImplementedError("multi-stage AIRs are not ported")
         self.air = air
         self.log_n = log_n
         self.fc = fri_config
         self.width = air.width()
+        self.s2w = air.stage2_width()
+        self.n_challenges = air.num_challenges()
         self.lqd = log2_ceil(getattr(air, "quotient_degree", lambda: 1)())
         self.n_chunks = 1 << self.lqd
         self.q_log_n = log_n + self.lqd
@@ -133,19 +140,44 @@ class TorchProver:
         as columns (B, W, N)."""
         return coset_lde_to_rev(cols, 1, self.log_max - self.log_n)
 
-    def _quotient_fn(self, cols: GL, alpha: GL2) -> GL2:
+    def _stage2_cols(self, cols: GL, challenges) -> GL:
+        """Stage-2 columns (B, s2w, H) from the trace columns (B, W, H) and
+        the sampled challenges, GL2 (B,) each.  An AIR with
+        `build_stage2_device` stays on the device; otherwise the challenges
+        and the trace come to the host once and `Air.build_stage2` runs for
+        each proof of the batch (the same values either way)."""
+        build_dev = getattr(self.air, "build_stage2_device", None)
+        if build_dev is not None:
+            return build_dev(cols, challenges)
+        host = _pull({"cols": cols, "ch": challenges})
+        out = []
+        for b in range(cols.shape[0]):
+            rows = host["cols"][b].T.tolist()
+            chs = [(int(c0[b]), int(c1[b])) for c0, c1 in host["ch"]]
+            out.append([[v % P for v in col]
+                        for col in self.air.build_stage2(rows, chs)])
+        return gl.from_u64(np.asarray(out, dtype=object), self.device)
+
+    def _quotient_fn(self, cols: GL, alpha: GL2, s2_cols: GL = None,
+                     challenges=None) -> GL2:
         """Constraint fold over the quotient coset divided by Z_H: cols
-        (B, W, H), alpha (B,) -> quotient evaluations GL2 (B, q)."""
+        (B, W, H), alpha (B,) -> quotient evaluations GL2 (B, q).  A
+        multi-stage AIR also passes its stage-2 columns (B, s2w, H) and the
+        challenges, GL2 (B,) each."""
         q_size = 1 << self.q_log_n
         is_first, is_last, is_trans, inv_zh = self.selectors()
-        locals_ = coset_lde_pair(cols, 1, self.q_log_n - self.log_n)
-        # the next row on the quotient coset is a rotation of the locals:
-        # g_t * 7 * g_q^j = 7 * g_q^(j + 2^lqd)
-        nexts = GL(torch.roll(locals_.lo, -self.n_chunks, -1),
-                   torch.roll(locals_.hi, -self.n_chunks, -1))
-        main = _Main(
-            [gl2.from_base(locals_[:, i]) for i in range(self.width)],
-            [gl2.from_base(nexts[:, i]) for i in range(self.width)])
+
+        def local_next(c: GL):
+            locals_ = coset_lde_pair(c, 1, self.q_log_n - self.log_n)
+            # the next row on the quotient coset is a rotation of the
+            # locals: g_t * 7 * g_q^j = 7 * g_q^(j + 2^lqd)
+            nexts = GL(torch.roll(locals_.lo, -self.n_chunks, -1),
+                       torch.roll(locals_.hi, -self.n_chunks, -1))
+            return ([gl2.from_base(locals_[:, i]) for i in range(c.shape[1])],
+                    [gl2.from_base(nexts[:, i]) for i in range(c.shape[1])])
+
+        main = _Main(*local_next(cols),
+                     *(local_next(s2_cols) if self.s2w else ()))
         folder = VerifierConstraintFolder(
             ops=Ops((cols.shape[0], q_size), self.device),
             main=main,
@@ -154,6 +186,7 @@ class TorchProver:
             is_transition=gl2.from_base(is_trans),
             alpha=alpha[:, None],
             publics=_publics(self.air, self.device),
+            challenges=[c[:, None] for c in challenges or []],
         )
         self.air.eval(folder)
         return gl2.mul_base(folder.accumulator, inv_zh)
@@ -196,9 +229,11 @@ class TorchProver:
             self._fold_cache[log_folded] = (rows_fn, step_fn, x0, den_inv)
         return self._fold_cache[log_folded][:2]
 
-    def _opened_fn(self, cols: GL, q_evals: GL2, zeta: GL2):
-        """Opened values: the trace at zeta and zeta * g (B, W) and the
-        quotient chunks at zeta (B, n_chunks, D)."""
+    def _opened_fn(self, cols: GL, q_evals: GL2, zeta: GL2,
+                   s2_cols: GL = None):
+        """Opened values: the trace at zeta and zeta * g (B, W), the
+        quotient chunks at zeta (B, n_chunks, D), and for a multi-stage AIR
+        the stage-2 columns at zeta and zeta * g (B, s2w)."""
         zeta_next = gl2.mul_base(zeta, gl.full((), self.g_t, self.device))
         tl = barycentric_eval_ext(cols, 1, zeta)
         tn = barycentric_eval_ext(cols, 1, zeta_next)
@@ -207,23 +242,33 @@ class TorchProver:
             ev = q_evals[..., ci::self.n_chunks]
             qc.append(barycentric_eval_ext(gl.stack([ev.c0, ev.c1], dim=-2),
                                            self.chunk_shifts[ci], zeta))
-        return tl, tn, gl2.stack(qc, dim=-2)
+        out = (tl, tn, gl2.stack(qc, dim=-2))
+        if self.s2w:
+            out += (barycentric_eval_ext(s2_cols, 1, zeta),
+                    barycentric_eval_ext(s2_cols, 1, zeta_next))
+        return out
 
     def _ro_fn(self, trace_lde: GL, q_lde: GL, tl: GL2, tn: GL2, qc: GL2,
-               zeta: GL2, alpha_fri: GL2) -> GL2:
+               zeta: GL2, alpha_fri: GL2, s2_lde: GL = None,
+               s2l: GL2 = None, s2n: GL2 = None) -> GL2:
         """FRI input at the LDE points (B, N), bit-reversed order, grouped
         as the verifier's reduced openings: for each (matrix, point)
-        group, sum_c alpha^k (p_c(x) - p_c(z)) / (x - z)."""
+        group, sum_c alpha^k (p_c(x) - p_c(z)) / (x - z).  The groups:
+        the trace at zeta and zeta * g, [the stage-2 matrix at both,] the
+        quotient chunks at zeta."""
         xs = self.ro_points()
         zeta_next = gl2.mul_base(zeta, gl.full((), self.g_t, self.device))
-        w = self.width
+        w, s2w = self.width, self.s2w
         pw = [gl2.ones(alpha_fri.shape, self.device)]
-        for _ in range(1, 2 * w + self.n_chunks * EXT_DEGREE):
+        for _ in range(1, 2 * w + 2 * s2w + self.n_chunks * EXT_DEGREE):
             pw.append(gl2.mul(pw[-1], alpha_fri))
         pow_stack = gl2.stack(pw, dim=-1)                     # (B, T)
         qc_flat = qc.reshape(qc.shape[0], -1)
-        groups = [(trace_lde, tl, zeta, 0), (trace_lde, tn, zeta_next, w),
-                  (q_lde, qc_flat, zeta, 2 * w)]
+        groups = [(trace_lde, tl, zeta, 0), (trace_lde, tn, zeta_next, w)]
+        if s2w:
+            groups += [(s2_lde, s2l, zeta, 2 * w),
+                       (s2_lde, s2n, zeta_next, 2 * w + s2w)]
+        groups.append((q_lde, qc_flat, zeta, 2 * w + 2 * s2w))
         sums, dens = [], []
         for p_at_x, p_at_z, z, k0 in groups:
             c = p_at_x.shape[-2]
@@ -285,10 +330,21 @@ class TorchProver:
         trace_lde = self._commit_trace_fn(cols)                # (B, W, N)
         trace_tree = DeviceMerkleTree(trace_lde)
         ch.observe_many(trace_tree.root)
-        alpha = ch.sample_ext()
         mark("commit_trace")
 
-        q_evals = self._quotient_fn(cols, alpha)               # (B, q)
+        # stage 2 (multi-stage AIRs): sample the challenges, build and
+        # commit the challenge-dependent matrix (refimpl/prover.py:127-140)
+        challenges = [ch.sample_ext() for _ in range(self.n_challenges)]
+        s2_cols = s2_lde = s2_tree = None
+        if self.s2w:
+            s2_cols = self._stage2_cols(cols, challenges)      # (B, s2w, H)
+            s2_lde = self._commit_trace_fn(s2_cols)            # (B, s2w, N)
+            s2_tree = DeviceMerkleTree(s2_lde)
+            ch.observe_many(s2_tree.root)
+            mark("stage2")
+        alpha = ch.sample_ext()
+
+        q_evals = self._quotient_fn(cols, alpha, s2_cols, challenges)
         mark("quotient")
         q_lde = self._commit_chunks_fn(q_evals)
         q_tree = DeviceMerkleTree(q_lde)
@@ -296,10 +352,12 @@ class TorchProver:
         zeta = ch.sample_ext()
         mark("commit_quotient")
 
-        tl, tn, qc = self._opened_fn(cols, q_evals, zeta)
+        opened = self._opened_fn(cols, q_evals, zeta, s2_cols)
+        tl, tn, qc = opened[:3]
         mark("opened")
         alpha_fri = ch.sample_ext()
-        u = self._ro_fn(trace_lde, q_lde, tl, tn, qc, zeta, alpha_fri)
+        u = self._ro_fn(trace_lde, q_lde, tl, tn, qc, zeta, alpha_fri,
+                        s2_lde, *opened[3:])
         mark("reduced_openings")
 
         phase_trees, phase_vectors = [], []
@@ -348,6 +406,11 @@ class TorchProver:
             "q_paths": q_tree.open_paths(qidx),
             "fold_sibs": [], "fold_paths": [],
         }
+        if self.s2w:
+            pulls["s2_root"] = s2_tree.root
+            pulls["s2l"], pulls["s2n"] = opened[3:]
+            pulls["s2_open"] = _gather_cols(s2_lde, qidx)
+            pulls["s2_paths"] = s2_tree.open_paths(qidx)
         idx = qidx
         for vec, tree in zip(phase_vectors, phase_trees):
             pulls["fold_sibs"].append(GL2(_gather_last(vec.c0, idx ^ 1),
@@ -378,15 +441,21 @@ class TorchProver:
         fold_sibs = [(s[0][b].tolist(), s[1][b].tolist())
                      for s in h["fold_sibs"]]
         fold_paths = [p[b].tolist() for p in h["fold_paths"]]
+        if self.s2w:
+            s2_open = h["s2_open"][b].tolist()                 # (Q, s2w)
+            s2_paths = h["s2_paths"][b].tolist()
         query_openings, query_proofs = [], []
         for qi in range(self.fc.num_queries):
-            query_openings.append([
-                BatchOpening(opened_values=[trace_open[qi]],
-                             opening_proof=trace_paths[qi]),
+            batches = [BatchOpening(opened_values=[trace_open[qi]],
+                                    opening_proof=trace_paths[qi])]
+            if self.s2w:
+                batches.append(BatchOpening(opened_values=[s2_open[qi]],
+                                            opening_proof=s2_paths[qi]))
+            batches.append(
                 BatchOpening(opened_values=[q_open[qi][ci * D:(ci + 1) * D]
                                             for ci in range(self.n_chunks)],
-                             opening_proof=q_paths[qi]),
-            ])
+                             opening_proof=q_paths[qi]))
+            query_openings.append(batches)
             query_proofs.append(QueryProof(commit_phase_openings=[
                 CommitPhaseProofStep(
                     sibling_value=(fold_sibs[l][0][qi], fold_sibs[l][1][qi]),
@@ -395,12 +464,16 @@ class TorchProver:
         return Proof(
             commitments=Commitments(
                 trace=Commitment(value=h["trace_root"][b].tolist()),
-                quotient_chunks=Commitment(value=h["q_root"][b].tolist())),
+                quotient_chunks=Commitment(value=h["q_root"][b].tolist()),
+                stage2=(Commitment(value=h["s2_root"][b].tolist())
+                        if self.s2w else None)),
             opened_values=OpenedValues(
                 trace_local=ext_list(h["tl"]),
                 trace_next=ext_list(h["tn"]),
                 quotient_chunks=[ext_list(h["qc"], ci)
-                                 for ci in range(self.n_chunks)]),
+                                 for ci in range(self.n_chunks)],
+                stage2_local=ext_list(h["s2l"]) if self.s2w else None,
+                stage2_next=ext_list(h["s2n"]) if self.s2w else None),
             opening_proof=TwoAdicFriPcsProof(
                 fri_proof=FriProof(
                     commit_phase_commits=[Commitment(value=r[b].tolist())
@@ -481,7 +554,8 @@ def get_prover(air: Air, log_n: int, fri_config: FriConfig,
     cache hit takes the caller's `air` (its publics)."""
     device = resolve_device(device)
     key = (type(air).__module__, type(air).__qualname__, air.name(),
-           air.width(), log_n, fri_config.log_blowup, fri_config.num_queries,
+           air.width(), air.stage2_width(), air.num_challenges(), log_n,
+           fri_config.log_blowup, fri_config.num_queries,
            fri_config.proof_of_work_bits, str(device))
     p = _prover_cache.get(key)
     if p is None:

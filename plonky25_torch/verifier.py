@@ -30,7 +30,7 @@ from typing import Dict
 
 import torch
 
-from .air import Air, VerifierConstraintFolder
+from .air import Air, VerifierConstraintFolder, check_multistage_consistency
 from .challenger import SymbolicChallenger, run_transcript
 from .constants import EXT_DEGREE, RATE
 from .device import resolve_device
@@ -62,26 +62,35 @@ class VerifyResult:
 
 
 class _Main:
-    """Adapter giving the AIR folder the reference's OpenedValues view."""
+    """Adapter giving the AIR folder the reference's OpenedValues view, and
+    a multi-stage AIR's stage-2 columns."""
 
-    def __init__(self, trace_local, trace_next, quotient_chunks):
+    def __init__(self, trace_local, trace_next, quotient_chunks,
+                 stage2_local=None, stage2_next=None):
         self.trace_local = trace_local
         self.trace_next = trace_next
         self.quotient_chunks = quotient_chunks
+        self.stage2_local = stage2_local
+        self.stage2_next = stage2_next
 
 
 class TorchVerifier:
     """Shape-specialized verifier; build once per (air, P3Config, device).
 
-    Verifies single-stage AIRs over GF(p^2), the reference's proof family;
-    multi-stage AIRs and D=3 proofs are later slices of the port."""
+    Verifies single- and multi-stage AIRs over GF(p^2), the reference's
+    proof family; D=3 proofs are a later slice of the port.  A multi-stage
+    AIR commits a second, challenge-dependent matrix between the trace and
+    quotient commitments (air.py): the transcript samples its challenges
+    after the trace commitment, and the stage-2 matrix is one more batch,
+    at the trace's height, with its own reduced-opening terms."""
 
     def __init__(self, air: Air, config: P3Config, device="cuda"):
         self.device = resolve_device(device)
         if config.ext_degree != 2:
             raise NotImplementedError("only D=2 proofs are ported")
-        if config.stage2_width or air.stage2_width() or air.num_challenges():
-            raise NotImplementedError("multi-stage AIRs are not ported")
+        check_multistage_consistency(air)
+        self.s2w = config.stage2_width
+        self.n_challenges = air.num_challenges() if self.s2w else 0
         self.air = air
         self.config = config
         fc = config.fri_config
@@ -112,6 +121,10 @@ class TorchVerifier:
         # ---- transcript schedule (symbolic replay; see challenger.py)
         sym = SymbolicChallenger()
         sym.observe(4)                              # trace commitment
+        self.challenge_idx = [sym.sample_ext()      # multi-stage challenges
+                              for _ in range(self.n_challenges)]
+        if self.s2w:
+            sym.observe(4)                          # stage-2 commitment
         self.alpha_idx = sym.sample_ext()
         sym.observe(4)                              # quotient commitment
         self.zeta_idx = sym.sample_ext()
@@ -128,16 +141,23 @@ class TorchVerifier:
         self.query_idx = torch.tensor(query_idx, device=self.device)
         self.n_steps = len(sym.steps)
 
+        # observation layout (witness.pack_witness order): trace commit,
+        # [stage-2 commit,] quotient commit, phase commits, pow witness
+        s2off = 4 if self.s2w else 0
+        self.obs_quotient = slice(4 + s2off, 8 + s2off)
+        self.obs_phases = slice(8 + s2off, 8 + s2off + 4 * self.n_phases)
+
         # ---- matrix and reduced-opening term schedule (verifier.rs:266-344):
-        # batch 0 is the trace (one matrix, points zeta and zeta*g), batch 1
-        # the quotient (one matrix per chunk, point zeta)
+        # batch 0 is the trace (one matrix, points zeta and zeta*g), [batch
+        # 1 the stage-2 matrix (the same,)] the last batch the quotient (one
+        # matrix per chunk, point zeta)
         h_tr = log2_strict(self.trace_domain.size()) + fc.log_blowup
-        self.mat_heights = [h_tr] + [
+        self.mat_heights = [h_tr] * (2 if self.s2w else 1) + [
             log2_strict(dom.size()) + fc.log_blowup
             for dom in self.quotient_chunks_domains]
         w = config.trace_width
-        terms_at_height: Dict[int, int] = {h_tr: 2 * w}
-        h_q = self.mat_heights[1]
+        terms_at_height: Dict[int, int] = {h_tr: 2 * w + 2 * self.s2w}
+        h_q = self.mat_heights[-1]
         terms_at_height[h_q] = terms_at_height.get(h_q, 0) + (
             self.quotient_degree * EXT_DEGREE)
         self.max_alpha_pow = max(terms_at_height.values())
@@ -163,8 +183,7 @@ class TorchVerifier:
 
         zeta = ext(self.zeta_idx)
         gen = gl.full((), self.trace_domain.gen(), self.device)
-        n_obs_head = 8 + 4 * self.n_phases
-        return {
+        out = {
             "pow_ok": pow_ok,
             "index": index,                                  # (B, Q)
             "samples": ch,          # every raw FS sample, in sample order
@@ -174,9 +193,14 @@ class TorchVerifier:
             "alpha_fri": ext(self.alpha_fri_idx),
             "betas_stack": gl2.stack([ext(ix) for ix in self.beta_idx], dim=1),
             "trace_commit": obs[:, 0:4],
-            "quotient_commit": obs[:, 4:8],
-            "phase_commits": obs[:, 8:n_obs_head].reshape(B, self.n_phases, 4),
+            "quotient_commit": obs[:, self.obs_quotient],
+            "phase_commits": obs[:, self.obs_phases].reshape(
+                B, self.n_phases, 4),
         }
+        if self.s2w:
+            out["stage2_commit"] = obs[:, 4:8]
+            out["challenges"] = [ext(ix) for ix in self.challenge_idx]
+        return out
 
     def _batch_all_fn(self, index, vals_list, sibs_list, commits):
         """All commitment batches' Merkle openings (verifier.rs:276-294).
@@ -231,11 +255,12 @@ class TorchVerifier:
 
     def _ro_fn(self, index, zeta: GL2, zeta_next: GL2, alpha_fri: GL2,
                batch_values, trace_local: GL2, trace_next: GL2,
-               quotient_chunks: GL2) -> GL2:
+               quotient_chunks: GL2, stage2_local: GL2 = None,
+               stage2_next: GL2 = None) -> GL2:
         """Reduced-opening accumulators (verifier.rs:296-344): index (B, Q);
         zeta, zeta_next, alpha_fri (B,); batch_values[b] (B, Q, M, C);
-        trace_local/next (B, w); quotient_chunks (B, n, 2).
-        Returns GL2 (B, L, Q).
+        trace_local/next (B, w); quotient_chunks (B, n, 2); stage2_local/
+        next (B, s2w) for a multi-stage AIR.  Returns GL2 (B, L, Q).
 
         Terms sharing (point z, log_height) share the denominator (x - z),
         so each group reduces to inv(x - z) * sum_c alpha^(k0+c) *
@@ -258,15 +283,23 @@ class TorchVerifier:
             pows.append(gl2.mul(pows[-1], alpha_fri))
         pow_stack = gl2.stack(pows, dim=1)                   # (B, K)
 
-        h_trace, h_quot = self.mat_heights[0], self.mat_heights[1]
+        h_trace, h_quot = self.mat_heights[0], self.mat_heights[-1]
         nq = self.quotient_degree * EXT_DEGREE
+        s2w = self.s2w
         groups = [
             # (p_at_x (B, Q, C), p_at_z (B, C), z (B,), height, k0)
             (batch_values[0][:, :, 0, :], trace_local, zeta, h_trace, 0),
             (batch_values[0][:, :, 0, :], trace_next, zeta_next, h_trace, w),
-            (batch_values[1].reshape(B, Q, nq), quotient_chunks.reshape(B, nq),
-             zeta, h_quot, 2 * w if h_quot == h_trace else 0),
         ]
+        if s2w:
+            groups += [
+                (batch_values[1][:, :, 0, :], stage2_local, zeta, h_trace,
+                 2 * w),
+                (batch_values[1][:, :, 0, :], stage2_next, zeta_next,
+                 h_trace, 2 * w + s2w)]
+        groups.append(
+            (batch_values[-1].reshape(B, Q, nq), quotient_chunks.reshape(B, nq),
+             zeta, h_quot, 2 * w + 2 * s2w if h_quot == h_trace else 0))
         sums, dens, heights = [], [], []
         for p_at_x, p_at_z, z, h, k0 in groups:
             C = p_at_x.shape[-1]
@@ -379,22 +412,16 @@ class TorchVerifier:
             lvl_flat(fold_sibs), fp)
         return per_q.reshape(B, Q).all(dim=1)
 
-    def _final_fn(self, alpha: GL2, zeta: GL2, trace_local: GL2,
-                  trace_next: GL2, quotient_chunks: GL2, publics=None):
-        """Quotient reconstruction, Lagrange selectors and the AIR fold
-        (verifier.rs:169-239): alpha, zeta (B,); trace_local/next (B, w);
-        quotient_chunks (B, n, 2).  Returns ok (B,)."""
+    def _quotient_at(self, zeta: GL2, quotient_chunks: GL2) -> GL2:
+        """The quotient at zeta from its chunks' openings (verifier.rs:
+        169-197): zeta (B,), quotient_chunks (B, n, 2) -> GL2 (B,).  Chunk
+        i weighs in by prod_{j != i} zp_j(zeta) / zp_j(first_i)."""
         B = zeta.shape[0]
         dev = self.device
         one = gl2.ones((), dev)
-
-        def base(v: int) -> GL:
-            return gl.full((), v, dev)
-
-        # zps[i] = (prod_{j != i} zp_j(zeta)) * host_factor_i
         zp_at_zeta = []
         for dom in self.quotient_chunks_domains:
-            u = gl2.mul_base(zeta, base(Gl.inv(dom.shift)))
+            u = gl2.mul_base(zeta, gl.full((), Gl.inv(dom.shift), dev))
             zp_at_zeta.append(gl2.sub(gl2.exp_power_of_2(u, dom.log_n), one))
         quotient = gl2.zeros((B,), dev)
         for i in range(self.quotient_degree):
@@ -406,6 +433,24 @@ class TorchVerifier:
                 c = quotient_chunks[:, i, e]
                 quotient = gl2.add(quotient, gl2.mul(
                     zps_i, gl2.mul(gl2.monomial(e, (), dev), c)))
+        return quotient
+
+    def _final_fn(self, alpha: GL2, zeta: GL2, trace_local: GL2,
+                  trace_next: GL2, quotient_chunks: GL2, publics=None,
+                  stage2_local: GL2 = None, stage2_next: GL2 = None,
+                  challenges=None):
+        """Quotient reconstruction, Lagrange selectors and the AIR fold
+        (verifier.rs:169-239): alpha, zeta (B,); trace_local/next (B, w);
+        quotient_chunks (B, n, 2); for a multi-stage AIR stage2_local/next
+        (B, s2w) and the challenges, GL2 (B,) each.  Returns ok (B,)."""
+        B = zeta.shape[0]
+        dev = self.device
+        one = gl2.ones((), dev)
+
+        def base(v: int) -> GL:
+            return gl.full((), v, dev)
+
+        quotient = self._quotient_at(zeta, quotient_chunks)
 
         # Lagrange selectors (two_adic.rs:92-122), one inversion for three
         unshifted = gl2.mul_base(zeta, base(Gl.inv(self.trace_domain.shift)))
@@ -421,6 +466,8 @@ class TorchVerifier:
             trace_next=[trace_next[:, i] for i in range(w)],
             quotient_chunks=[[quotient_chunks[:, c, e] for e in range(EXT_DEGREE)]
                              for c in range(self.quotient_degree)],
+            stage2_local=[stage2_local[:, i] for i in range(self.s2w)],
+            stage2_next=[stage2_next[:, i] for i in range(self.s2w)],
         )
         folder = VerifierConstraintFolder(
             ops=gl2.Ops((B,), dev),
@@ -430,6 +477,7 @@ class TorchVerifier:
             is_transition=d_last,
             alpha=alpha,
             publics=publics,
+            challenges=challenges,
         )
         self.air.eval(folder)
         return gl2.eq(gl2.mul(folder.accumulator, invs3[2]), quotient)
@@ -446,14 +494,18 @@ class TorchVerifier:
         t = self._transcript_fn(ws["obs"])
         index = t["index"]
         mark("transcript")
+        commits = [t["trace_commit"]]
+        if self.s2w:
+            commits.append(t["stage2_commit"])
+        commits.append(t["quotient_commit"])
         merkle_ok = self._batched_batch_all_fn(
-            index, ws["batch_values"], ws["batch_sibs"],
-            [t["trace_commit"], t["quotient_commit"]]).all(dim=-1)
+            index, ws["batch_values"], ws["batch_sibs"], commits).all(dim=-1)
         mark("merkle")
         ro_stack = self._ro_fn(
             index, t["zeta"], t["zeta_next"], t["alpha_fri"],
             ws["batch_values"], ws["trace_local"], ws["trace_next"],
-            ws["quotient_chunks"])
+            ws["quotient_chunks"], ws.get("stage2_local"),
+            ws.get("stage2_next"))
         mark("reduced_openings")
         fold_ok = self._batched_fold_fn(
             index, t["phase_commits"], t["betas_stack"],
@@ -462,7 +514,9 @@ class TorchVerifier:
         mark("fold")
         quotient_ok = self._final_fn(
             t["alpha"], t["zeta"], ws["trace_local"], ws["trace_next"],
-            ws["quotient_chunks"], _publics(self.air, self.device))
+            ws["quotient_chunks"], _publics(self.air, self.device),
+            ws.get("stage2_local"), ws.get("stage2_next"),
+            t.get("challenges"))
         mark("final")
         return {
             "ok": t["pow_ok"] & merkle_ok & fold_ok & quotient_ok,
@@ -520,6 +574,7 @@ def get_verifier(air: Air, config: P3Config, device="cuda") -> TorchVerifier:
         config.quotient_opened_values_len, config.degree_bits,
         config.fri_config.log_blowup, config.fri_config.num_queries,
         config.fri_config.proof_of_work_bits, config.stage2_width,
+        air.num_challenges() if config.stage2_width else 0,
         config.ext_degree, str(device),
     )
     v = _verifier_cache.get(key)
