@@ -64,6 +64,26 @@ Phases, one line each; any failure exits non-zero:
                 changed at a row by a prover faulty on that lane: all 256
                 through one `BatchVerifier` call, the faulty lane rejected
                 by its quotient check alone; proofs/s, peak memory;
+  [keccak-f]    ops/keccak.py's keccak-f[1600] (PyTorch ops) at 2^16 states
+                against refimpl.keccak_f_flat on a sample and the zero-state
+                known answer; ms per call;
+  [prove-keccak-32]  KeccakAir's one-keccak-f trace (32 rows x 2,633
+                columns, FriConfig(1, 20, 8)): byte-equal to
+                tests/fixtures/proof_keccak32_refimpl.json, accepted by
+                `verify_proof` with the fixture's transcript, the a_prime-bit
+                tamper rejected with the JAX verifier's flags, a changed
+                trace-leaf value rejected by the Merkle check; launch counts;
+  [prove-keccak]  KeccakAir at 2^12 rows x 2,633 columns (the fixture's 170
+                seeded permutations), FriConfig(1, 100, 16): digest, commitments,
+                alpha, zeta, PoW witness and query indices equal to
+                tests/fixtures/proof_keccak_expected.json (the JAX device
+                prover's); first and steady latency, keccak-f/s, stage ms,
+                launches, device time and busy share, peak memory;
+  [verify-keccak]  `verify_proof` of that proof: launches (659 sponge
+                chunks per trace leaf), latency median of 5, device time;
+  [batch-keccak]  `BatchVerifier` at B=256 copies of that proof x Q=100,
+                four lanes tampered: exact verdicts, queries/s, stage ms,
+                peak memory, device time;
   [timing]      each kernel at each path's state counts against its bound
                 and its plain version; both kernels, each variant, at
                 N = 1, 2,048, 32,768 and 2^21 and across the crossover
@@ -100,8 +120,15 @@ import torch  # noqa: E402
 from plonky25_torch.challenger import SymbolicChallenger  # noqa: E402
 from plonky25_torch.constants import EXT_DEGREE, RATE  # noqa: E402
 from plonky25_torch.fields import gl  # noqa: E402
-from plonky25_torch.models import FibonacciAir, MultisetAir, RlcAir  # noqa: E402
+from plonky25_torch.models import (  # noqa: E402
+    FibonacciAir,
+    KeccakAir,
+    MultisetAir,
+    RlcAir,
+    keccak_trace_np,
+)
 from plonky25_torch.models.fibonacci import fibonacci_trace  # noqa: E402
+from plonky25_torch.ops import keccak as keccak_ops  # noqa: E402
 from plonky25_torch.ops import build  # noqa: E402
 from plonky25_torch.ops import poseidon2 as p2  # noqa: E402
 from plonky25_torch.parallel.batch import (  # noqa: E402
@@ -117,7 +144,8 @@ from plonky25_torch.proof import (  # noqa: E402
     proof_to_json,
 )
 from plonky25_torch.prover import BatchProver, prove  # noqa: E402
-from plonky25_torch.prover.prove import GRIND_WINDOW  # noqa: E402
+from plonky25_torch.prover.prove import grind_window  # noqa: E402
+from plonky25_torch.refimpl.keccak import keccak_f_flat  # noqa: E402
 from plonky25_torch.utils.bits import log2_ceil  # noqa: E402
 from plonky25_torch.utils.tree import tree_map  # noqa: E402
 from plonky25_torch.verifier import get_verifier, verify_proof  # noqa: E402
@@ -129,6 +157,8 @@ DEVICE = "cuda"
 B = 2048
 B_PROVE = 256
 LOG_N = 20
+KECCAK_LOG_N = 12       # BASELINE.md config 4: 2^12 x 2,633 traces
+B_KECCAK = 256
 TAMPERED = ("pow", "merkle_sibling", "fold_sibling", "final_poly")
 AOS, SOA = "poseidon2_permute_w12", "poseidon2_permute_soa"
 # H100 SXM rates (NVIDIA data sheet; CUDA C Programming Guide throughput
@@ -346,13 +376,21 @@ def soa_vs_plain_and_aos(planes):
 
 def verify_path_shapes(v, b):
     """{states per launch: launches} of the state-major kernel in one
-    verification of b proofs: the transcript's duplex steps, the fused
-    Merkle walk (leaf hash + one compression per level) over the trace,
-    [stage-2] and quotient batches, the fold's leaf hash and its walk."""
-    nb = 3 if v.s2w else 2
+    verification of b proofs: the transcript's duplex steps, the Merkle
+    walks over the trace, [stage-2] and quotient batches (fused, a leaf
+    hash and one compression per level, when every batch's row fits one
+    sponge chunk; otherwise each batch alone, a launch per sponge chunk of
+    its row and one per level: 659 chunks for a KeccakAir row), the fold's
+    leaf hash and its walk."""
+    widths = [v.config.trace_width] + ([v.s2w] if v.s2w else []) + [
+        v.quotient_degree * EXT_DEGREE]
     shapes = Counter()
     shapes[b] += v.n_steps
-    shapes[nb * b * v.Q] += 1 + v.log_max_height
+    if max(widths) <= RATE:
+        shapes[len(widths) * b * v.Q] += 1 + v.log_max_height
+    else:
+        for w in widths:
+            shapes[b * v.Q] += -(-w // RATE) + v.log_max_height
     shapes[v.n_phases * b * v.Q] += 1 + v.n_phases
     return dict(shapes)
 
@@ -402,7 +440,7 @@ def prove_path_shapes(log_n, fc, air, b, windows):
     tree(log_max, n_chunks * EXT_DEGREE)
     for log_folded in range(log_max - 1, fc.log_blowup - 1, -1):
         tree(log_folded, 4)
-    soa[b * GRIND_WINDOW] += windows
+    soa[b * grind_window(fc)] += windows
     return {AOS: {b: transcript_steps(log_n, fc, n_ch, s2w)}, SOA: dict(soa)}
 
 
@@ -480,6 +518,13 @@ def tamper(proof, kind):
         p.opened_values.stage2_local[0] = ((c0 + 1) % P, c1)
     elif kind == "stage2_commit":
         p.commitments.stage2.value[0] ^= 1
+    elif kind == "a_prime_bit":
+        # tests/test_keccak.py:91-99: a KeccakAir a_prime bit at zeta
+        c0, c1 = p.opened_values.trace_local[865 + 77]
+        p.opened_values.trace_local[865 + 77] = ((c0 + 1) % P, c1)
+    elif kind == "trace_leaf":
+        row = p.opening_proof.query_openings[3][0].opened_values[0]
+        row[1234 % len(row)] = (row[1234 % len(row)] + 1) % P
     elif kind == "fold_sibling":
         s = fp.query_proofs[5].commit_phase_openings[1]
         s.sibling_value = (s.sibling_value[0] ^ 1, s.sibling_value[1])
@@ -604,7 +649,8 @@ def measure_prove(air, trace, fc, path, path_launches, path_shapes,
     first_ms = (time.perf_counter() - t0) * 1e3
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     text = compact(proof)
-    windows = proof.opening_proof.fri_proof.pow_witness // GRIND_WINDOW + 1
+    windows = (proof.opening_proof.fri_proof.pow_witness
+               // grind_window(fc) + 1)
     path_shapes[path] = prove_path_shapes(
         log2_ceil(len(trace)), fc, air, 1, windows)
     steady = []
@@ -713,7 +759,7 @@ def main(argv=None):
     path_shapes["verify_batch"] = {AOS: verify_path_shapes(v, B), SOA: {}}
     w64 = proof.opening_proof.fri_proof.pow_witness
     path_shapes["prove_64"] = prove_path_shapes(
-        6, fc, FibonacciAir(), 1, w64 // GRIND_WINDOW + 1)
+        6, fc, FibonacciAir(), 1, w64 // grind_window(fc) + 1)
     # the multi-stage paths' verifiers, from the shapes their proofs have
     with open(os.path.join(FIXTURES, "mmcs_multi_height.json")) as f:
         mm = json.load(f)
@@ -729,13 +775,27 @@ def main(argv=None):
     v_rlc = get_verifier(RlcAir(), shape_config(RlcAir(), 6, fc), DEVICE)
     path_shapes["verify_batch_rlc"] = {AOS: verify_path_shapes(v_rlc, B),
                                        SOA: {}}
+    # the Keccak paths: the fixtures, and the verifier of a 2^12-row proof
+    with open(os.path.join(FIXTURES, "proof_keccak32_expected.json")) as f:
+        expected_k32 = json.load(f)
+    with open(os.path.join(FIXTURES, "proof_keccak_expected.json")) as f:
+        expected_keccak = json.load(f)
+    check(FriConfig(**expected_keccak["fri_config"]) == fc
+          and expected_keccak["height"] == 1 << KECCAK_LOG_N,
+          "keccak digest fixture made at another FriConfig or height")
+    kair = KeccakAir()
+    v_keccak = get_verifier(kair, shape_config(kair, KECCAK_LOG_N, fc), DEVICE)
+    path_shapes["verify_keccak"] = {AOS: verify_path_shapes(v_keccak, 1),
+                                    SOA: {}}
+    path_shapes["verify_batch_keccak"] = {
+        AOS: verify_path_shapes(v_keccak, B_KECCAK), SOA: {}}
     # every state count of the prover paths (the number of grind windows
     # does not change the counts)
     prove_runs = ((FibonacciAir(), 6, 1), (FibonacciAir(), 13, 1),
                   (FibonacciAir(), LOG_N, 1), (FibonacciAir(), 6, B_PROVE),
                   (RlcAir(), 6, 1), (MultisetAir(), 6, 1),
                   (RlcAir(), LOG_N, 1), (MultisetAir(), LOG_N, 1),
-                  (RlcAir(), 6, B_PROVE))
+                  (RlcAir(), 6, B_PROVE), (kair, 5, 1), (kair, KECCAK_LOG_N, 1))
     prove_sizes = {k: sorted(set().union(*(
         prove_path_shapes(log_n, fc, a, b, 1)[k] for a, log_n, b in prove_runs)))
         for k in (AOS, SOA)}
@@ -758,7 +818,9 @@ def main(argv=None):
               f"fixture's known answers")
     verify_sizes = sorted(set().union(*(
         path_shapes[p][AOS] for p in ("verify_single", "verify_batch",
-                                      "verify_batch_rlc", "mmcs_multi")))
+                                      "verify_batch_rlc", "mmcs_multi",
+                                      "verify_keccak",
+                                      "verify_batch_keccak")))
         | set(prove_sizes[AOS]))
     for n in verify_sizes:
         err_aos = max(err_aos, aos_vs_plain(random_states(n, 7 * n + 1)))
@@ -956,7 +1018,7 @@ def main(argv=None):
           == [False, True, True, True, False],
           "tampered lane not rejected by its quotient check alone")
     bp_windows = max(pr.opening_proof.fri_proof.pow_witness
-                     for pr in proofs) // GRIND_WINDOW + 1
+                     for pr in proofs) // grind_window(fc) + 1
     path_shapes["batch_prove"] = prove_path_shapes(6, fc, air, B_PROVE,
                                                    bp_windows)
     check_launches("batch_prove", path_launches["batch_prove"],
@@ -964,7 +1026,7 @@ def main(argv=None):
     one = path_launches["prove_64"]
     check(path_launches["batch_prove"][AOS] == one[AOS]
           and path_launches["batch_prove"][SOA] - bp_windows
-          == one[SOA] - path_shapes["prove_64"][SOA][GRIND_WINDOW],
+          == one[SOA] - path_shapes["prove_64"][SOA][grind_window(fc)],
           "a batch launched the kernels more often than one proof")
     runs, peak_bp_gb, bp_stage_ms = timed_runs(bp.prove, traces)
     ms_bp = statistics.median(runs)
@@ -1055,7 +1117,7 @@ def main(argv=None):
               f"{path}: verify_proof verdict differs from the fixture's")
         path_shapes[path] = prove_path_shapes(
             6, fc, ms_air, 1, pr.opening_proof.fri_proof.pow_witness
-            // GRIND_WINDOW + 1)
+            // grind_window(fc) + 1)
         check_launches(path, path_launches[path], path_shapes[path], split_max)
         ms_proofs[name] = pr
         print(f"[prove-{name}-64] {ms_air.name()}Air, 64 rows: proof "
@@ -1201,7 +1263,7 @@ def main(argv=None):
           f"batch-prove-rlc faulty lane not rejected by its quotient check "
           f"alone: {rbad}")
     bp_windows = max(pr.opening_proof.fri_proof.pow_witness
-                     for pr in proofs) // GRIND_WINDOW + 1
+                     for pr in proofs) // grind_window(fc) + 1
     path_shapes["batch_prove_rlc"] = prove_path_shapes(
         6, fc, RlcAir(), B_PROVE, bp_windows)
     check_launches("batch_prove_rlc", path_launches["batch_prove_rlc"],
@@ -1225,6 +1287,182 @@ def main(argv=None):
         "launches": path_launches["batch_prove_rlc"]}
 
     lap("batch-prove-rlc")
+    # ---- keccak-f[1600] as PyTorch ops, 2^16 states
+    rng = np.random.default_rng(0xF1600)
+    states = rng.integers(0, 1 << 64, size=(1 << 16, 25), dtype=np.uint64,
+                          endpoint=False)
+    states[0] = 0
+    lanes_kf = keccak_ops.from_u64(states, DEVICE)
+    out = keccak_ops.to_u64(keccak_ops.keccak_f(lanes_kf))
+    sample = range(0, 1 << 16, 1021)
+    for i in sample:
+        check(out[i].tolist() == keccak_f_flat(states[i].tolist()),
+              f"keccak-f of state {i} differs from refimpl.keccak_f_flat")
+    check([int(out[0][i]) for i in (0, 1, 24)] == [
+        0xF1258F7940E1DDE7, 0x84D5CCF933C0478A, 0xEAF1FF7B5CECA249],
+        "keccak-f of the zero state differs from the known answer")
+    kf_ms = cuda_ms(lambda: keccak_ops.keccak_f(lanes_kf), 5)
+    print(f"[keccak-f] keccak-f[1600] on 2^16 states (PyTorch ops, 24 "
+          f"rounds): {len(sample)} sampled states equal to "
+          f"refimpl.keccak_f_flat, the zero state's known answer; "
+          f"{kf_ms:.2f} ms per call, {(1 << 16) / kf_ms * 1e3:.0f} keccak-f/s")
+    report["keccak_f"] = {"states": 1 << 16, "ms": kf_ms,
+                          "sampled": len(sample)}
+    del states, lanes_kf, out
+
+    lap("keccak-f")
+    # ---- the one-keccak-f proof: the int oracle's fixture, byte for byte
+    fc32 = FriConfig(**expected_k32["fri_config"])
+    with open(os.path.join(FIXTURES, "proof_keccak32_refimpl.json")) as f:
+        k32_text = f.read()
+    rows32 = keccak_trace_np([expected_k32["inputs"]])
+    p32, path_launches["prove_keccak_32"] = counted(
+        lambda: prove(kair, rows32, fc32, device=DEVICE))
+    check(compact(p32) == k32_text, "the 32-row Keccak proof differs from "
+          "tests/fixtures/proof_keccak32_refimpl.json")
+    path_shapes["prove_keccak_32"] = prove_path_shapes(
+        5, fc32, kair, 1, p32.opening_proof.fri_proof.pow_witness
+        // grind_window(fc32) + 1)
+    check_launches("prove_keccak_32", path_launches["prove_keccak_32"],
+                   path_shapes["prove_keccak_32"], split_max)
+    r = verify_proof(p32, kair, fc32, device=DEVICE)
+    check(verdict(r) == {k: v for k, v in expected_k32["verdict"].items()
+                         if k != "shape_ok"} and r.shape_ok,
+          "the 32-row Keccak proof's verdict differs from the fixture's")
+    check(ext_int(r.alpha) == expected_k32["alpha"]
+          and ext_int(r.zeta) == expected_k32["zeta"]
+          and r.query_indices.tolist() == expected_k32["query_indices"],
+          "the 32-row Keccak proof's transcript differs from the fixture's")
+    want_t = {k: v for k, v in
+              expected_k32["tamper_a_prime_bit"]["verdict"].items()
+              if k != "shape_ok"}
+    k32_flags = {kind: verdict(verify_proof(tamper(p32, kind), kair, fc32,
+                                            device=DEVICE))
+                 for kind in ("a_prime_bit", "trace_leaf")}
+    check(k32_flags["a_prime_bit"] == want_t,
+          f"a_prime-bit tamper: {k32_flags['a_prime_bit']}, the JAX "
+          f"verifier gave {want_t}")
+    check(not k32_flags["trace_leaf"]["ok"]
+          and not k32_flags["trace_leaf"]["merkle_ok"],
+          "a changed trace-leaf value passed the Merkle check")
+    print(f"[prove-keccak-32] KeccakAir, 32 rows x {kair.width()} columns, "
+          f"FriConfig(1, 20, 8): proof byte-equal to the fixture "
+          f"({len(k32_text)} bytes); accepted by verify_proof with the "
+          f"fixture's alpha, zeta and query indices; a_prime-bit tamper "
+          f"rejected with the JAX verifier's flags {want_t}; changed "
+          f"trace-leaf value rejected (merkle_ok False); launches {AOS} "
+          f"{path_launches['prove_keccak_32'][AOS]}, {SOA} "
+          f"{path_launches['prove_keccak_32'][SOA]} (as the shape gives)")
+    report["prove_keccak_32"] = {"bytes": len(k32_text),
+                                 "launches": path_launches["prove_keccak_32"],
+                                 "tampers": k32_flags}
+
+    lap("prove-keccak-32")
+    # ---- KeccakAir at 2^12 rows: the JAX package's digest, measurements
+    n_perm = len(expected_keccak["inputs"])
+    t0 = time.perf_counter()
+    ktrace = keccak_trace_np(expected_keccak["inputs"], 1 << KECCAK_LOG_N)
+    ksetup_s = time.perf_counter() - t0
+    kbig, line, report["prove_keccak"] = measure_prove(
+        kair, ktrace, fc, "prove_keccak", path_launches, path_shapes,
+        split_max)
+    del ktrace
+    cfg_k = derive_config(kbig, fc)
+    check(cfg_k == v_keccak.config, "the Keccak proof's shape differs")
+    got = proof_digest(kbig, v_keccak, cfg_k)
+    for k, val in got.items():
+        check(val == expected_keccak[k], f"Keccak 2^{KECCAK_LOG_N} {k} "
+              f"differs from the JAX package's")
+    steady = statistics.median(report["prove_keccak"]["steady_ms"])
+    report["prove_keccak"].update(
+        trace_setup_s=ksetup_s, permutations=n_perm,
+        keccak_f_per_s=n_perm / (steady / 1e3))
+    print(f"[prove-keccak] KeccakAir at 2^{KECCAK_LOG_N} rows x "
+          f"{kair.width()} columns ({n_perm} permutations), FriConfig(1, 100, "
+          f"16): {report['prove_keccak']['bytes']} bytes, equal to the JAX "
+          f"package's digest (sha256, commitments, alpha, zeta, PoW witness, "
+          f"query indices); "
+          f"{n_perm / (steady / 1e3):.1f} keccak-f/s steady; trace made in "
+          f"{ksetup_s:.1f} s beforehand; " + line)
+
+    lap("prove-keccak")
+    # ---- verify_proof on that proof
+
+    def verify_keccak():
+        return verdict(verify_proof(kbig, kair, fc, device=DEVICE))
+
+    got, path_launches["verify_keccak"] = counted(verify_keccak)
+    check(got["ok"], "the Keccak 2^12 proof was rejected by verify_proof")
+    check_launches("verify_keccak", path_launches["verify_keccak"],
+                   path_shapes["verify_keccak"], split_max)
+    lat = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        check(verify_keccak()["ok"], "the Keccak 2^12 proof was rejected")
+        lat.append((time.perf_counter() - t0) * 1e3)
+    devk, profk = device_summary(profile_device_time(verify_keccak),
+                                 statistics.median(lat))
+    print(f"[verify-keccak] verify_proof of the 2^{KECCAK_LOG_N}-row Keccak "
+          f"proof: accepted; {path_launches['verify_keccak'][AOS]} kernel "
+          f"launches ({-(-kair.width() // RATE)} sponge chunks per trace "
+          f"leaf); latency median {statistics.median(lat):.1f} ms, best "
+          f"{min(lat):.1f} ms (host packing of the proof included); {devk}")
+    report["verify_keccak"] = {"latency_ms": lat,
+                               "launches": path_launches["verify_keccak"],
+                               "profile": profk}
+
+    lap("verify-keccak")
+    # ---- BatchVerifier on B_KECCAK copies of that proof, four tampered
+    bvk = BatchVerifier(kair, cfg_k, device=DEVICE)
+    check(bvk.base is v_keccak, "the Keccak verifier was not the shape's")
+    wk = pack_witness(kbig, cfg_k, DEVICE)
+    lanes = [3, B_KECCAK // 3, 2 * B_KECCAK // 3, B_KECCAK - 1]
+    bad = {lane: pack_witness(tamper(kbig, kind), cfg_k, DEVICE)
+           for lane, kind in zip(lanes, TAMPERED)}
+    wsk = stack_witnesses([bad.get(b, wk) for b in range(B_KECCAK)])
+    del wk, bad
+    want = torch.ones(B_KECCAK, dtype=torch.bool, device=DEVICE)
+    want[lanes] = False
+
+    def verify_batch_keccak(on_stage=None):
+        return bvk.verify_witnesses(wsk, on_stage)
+
+    torch.cuda.reset_peak_memory_stats()
+    ok, path_launches["verify_batch_keccak"] = counted(verify_batch_keccak)
+    check(torch.equal(ok, want), "batch-keccak verdicts differ")
+    check_launches("verify_batch_keccak", path_launches["verify_batch_keccak"],
+                   path_shapes["verify_batch_keccak"], split_max)
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        check(torch.equal(verify_batch_keccak(), want),
+              "batch-keccak verdicts differ")
+        runs.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    clock = StageClock()
+    verify_batch_keccak(clock)
+    stage_ms = clock.ms()
+    ms_batch = statistics.median(runs)
+    devb, profb = device_summary(profile_device_time(verify_batch_keccak),
+                                 ms_batch)
+    qps = B_KECCAK * v_keccak.Q / (ms_batch / 1e3)
+    print(f"[batch-keccak] B={B_KECCAK} x Q={v_keccak.Q} KeccakAir 2^"
+          f"{KECCAK_LOG_N} proofs: verdicts exact ({len(lanes)} tampered "
+          f"lanes: {', '.join(TAMPERED)}); "
+          f"{path_launches['verify_batch_keccak'][AOS]} kernel launches; "
+          f"{ms_batch:.1f} ms per batch (median of 3), {qps:.0f} queries/s, "
+          f"{B_KECCAK / (ms_batch / 1e3):.1f} proofs/s; peak {peak_gb:.2f} GB;"
+          f" stage ms: " + ", ".join(f"{k} {t:.1f}" for k, t in stage_ms.items())
+          + f"; {devb}")
+    report["batch_keccak"] = {
+        "B": B_KECCAK, "Q": v_keccak.Q, "ms_runs": runs, "ms": ms_batch,
+        "queries_per_s": qps, "peak_allocated_gb": peak_gb,
+        "stage_ms": stage_ms, "launches": path_launches["verify_batch_keccak"],
+        "profile": profb}
+    del wsk, kbig
+    torch.cuda.empty_cache()
+
+    lap("batch-keccak")
     # ---- each kernel at each path's shapes
     clk_hz = max_sm_mhz * 1e6
     timed = {}

@@ -1,9 +1,10 @@
 """plonky25_torch: the Plonky3 STARK verifier and prover of plonky25_tpu,
 ported to PyTorch and CUDA for NVIDIA Hopper.
 
-It verifies proofs of GF(p^2) AIRs, single-stage (FibonacciAir) and
-multi-stage (RlcAir, MultisetAir: a second matrix committed after
-challenges drawn from the trace commitment), one at a time
+It verifies proofs of GF(p^2) AIRs, single-stage (FibonacciAir, and
+KeccakAir: 2,633 columns, its constraints as vectors) and multi-stage
+(RlcAir, MultisetAir: a second matrix committed after challenges drawn
+from the trace commitment), one at a time
 (`verify_proof`) or in batches (`parallel.BatchVerifier`), and proves
 them, one at a time (`prover.prove`) or in batches (`prover.BatchProver`).
 Field arithmetic is PyTorch on int64 limb tensors; every Poseidon2
@@ -24,5 +25,14 @@ from .proof import (  # noqa: F401
     load_proof,
     proof_from_json,
     proof_to_json,
+    save_proof,
+)
+from .air import Air, FilteredAirBuilder, VerifierConstraintFolder  # noqa: F401
+from .errors import (  # noqa: F401
+    FriError,
+    InvalidPowWitness,
+    InvalidProofShape,
+    P25Error,
+    check_proof_shape,
 )
 from .verifier import VerifyResult, get_verifier, verify_proof  # noqa: F401

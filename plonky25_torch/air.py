@@ -74,6 +74,49 @@ def check_multistage_consistency(air: "Air") -> None:
             "requires stage2_width() > 0")
 
 
+class Columns:
+    """The per-column list view of a stacked matrix (a GL2 with the column
+    axis leading): item i is vec[i], made when asked for, so a 2,633-column
+    AIR that reads the stacked matrix makes no per-column values."""
+
+    def __init__(self, vec):
+        self.vec = vec
+
+    def __len__(self):
+        return self.vec.shape[0]
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self.vec[j] for j in range(len(self))[i]]
+        return self.vec[i]
+
+    def __iter__(self):
+        return (self.vec[i] for i in range(len(self)))
+
+
+class Main:
+    """The folder's `main`: the trace at the evaluation points and one row
+    on, each stacked with the column axis leading (`local_vec`,
+    `next_vec`: GL2 (w, B) at the verifier's zeta, (w, B, q) on the
+    prover's quotient coset, as the JAX verifier and prover set them), the
+    per-column lists as views of them, the quotient chunks' openings (the
+    verifier's), and a multi-stage AIR's stage-2 columns the same way."""
+
+    def __init__(self, local_vec, next_vec, quotient_chunks=(),
+                 stage2_local_vec=None, stage2_next_vec=None):
+        self.local_vec = local_vec
+        self.next_vec = next_vec
+        self.trace_local = Columns(local_vec)
+        self.trace_next = Columns(next_vec)
+        self.quotient_chunks = list(quotient_chunks)
+        self.stage2_local = self.stage2_next = None
+        if stage2_local_vec is not None:
+            self.stage2_local_vec = stage2_local_vec
+            self.stage2_next_vec = stage2_next_vec
+            self.stage2_local = Columns(stage2_local_vec)
+            self.stage2_next = Columns(stage2_next_vec)
+
+
 class VerifierConstraintFolder:
     """air.rs:20-27 plus the builder methods at air.rs:34-92."""
 

@@ -26,6 +26,13 @@ class InvalidProofShape(FriError):
     (verifier.rs:126-133, 372-374)."""
 
 
+class InvalidPowWitness(FriError):
+    """Proof-of-work witness fails the grind check (challenger.rs:159-169).
+
+    Only raised by strict APIs; the batched verifier reports it in
+    VerifyResult.pow_ok instead."""
+
+
 def _want(cond: bool, msg: str) -> None:
     if not cond:
         raise InvalidProofShape(msg)

@@ -9,8 +9,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from ..utils.tree import tree_map
 from . import goldilocks as gl
 from .goldilocks import GL
 
@@ -144,13 +146,19 @@ class Ops:
 
     `shape` is the evaluation-point shape: the proof axis (B,) in the
     verifier, which folds every proof of a batch at its own zeta, and
-    (B, q) in the prover, which folds over the quotient coset.  Each
-    constraint has exactly that shape; the vector constraints of wide AIRs
-    (leading constraint axes) come with those AIRs in a later slice."""
+    (B, q) in the prover, which folds over the quotient coset.  A
+    constraint may carry extra LEADING axes (the vector constraints of wide
+    AIRs such as KeccakAir): a constraint of shape (k, *shape), or one
+    that broadcasts to it, folds as k consecutive constraints in index
+    order, the constraint axis being axis 0."""
 
     def __init__(self, shape, device):
         self._shape = tuple(shape)
         self._device = device
+
+    @property
+    def point_ndim(self):
+        return len(self._shape)
 
     def add(self, x, y):
         return add(x, y)
@@ -181,21 +189,112 @@ class Ops:
         X*b = (7*b1, b0) keeps the algebra consistent."""
         return GL2(gl.add(a.c0, _mul_w(b.c1)), gl.add(a.c1, b.c0))
 
+    # ---- vector helpers (constraint axis = axis 0) -----------------------
+    @staticmethod
+    def stack(vals):
+        return stack(vals)
+
+    @staticmethod
+    def concat(vals):
+        """Concatenate along the constraint axis (axis 0)."""
+        return concatenate(vals)
+
+    def take(self, vec: GL2, idx):
+        """vec[idx] along the constraint axis.  idx: a slice, a sequence or
+        numpy array of ints (an ascending run becomes a slice, a view;
+        other tables become an index tensor on the device once, cached),
+        or an int64 tensor on vec's device."""
+        if not isinstance(idx, (slice, torch.Tensor)):
+            idx = _index(idx, vec.c0.device)
+        return vec[idx]
+
+    def const_base(self, ints):
+        """Base-field constants (k,) as GL2 of shape (k,) + (1,) *
+        point_ndim, made on the device once per value list (cached)."""
+        if isinstance(ints, np.ndarray):
+            ints = ints.reshape(-1)
+        key = (tuple(int(v) for v in ints), self.point_ndim,
+               str(self._device))
+        c = _CONSTS.get(key)
+        if c is None:
+            c0 = gl.from_u64(np.asarray(key[0], dtype=object), self._device)
+            c0 = c0.reshape(len(key[0]), *(1,) * self.point_ndim)
+            c = GL2(c0, gl.zeros(c0.shape, self._device))
+            _CONSTS[key] = c
+        return c
+
     def fold_constraints(self, alpha: GL2, constraints) -> GL2:
-        """acc = acc*alpha + c_i in recording order (air.rs:63-69)."""
-        acc = self.zero()
-        for c in constraints:
-            if c.shape != self._shape:
-                raise ValueError(
-                    f"constraint of shape {c.shape} at evaluation points of "
-                    f"shape {self._shape}: vector constraints are not ported")
-            acc = add(mul(acc, alpha), c)
-        return acc
+        """acc = acc*alpha + c_i over the flattened constraint sequence
+        (air.rs:63-69), computed as sum_i c_i * alpha^(N-1-i): the field is
+        exact, so this equals the Horner fold bit for bit.  The constraints
+        are flattened and concatenated along axis 0, the powers are built
+        in log2(N) doubling steps (`power_stack`), then one product and a
+        tree sum (`sum_dim`): a few dozen tensor ops for any N, where a
+        Horner loop over N thousand constraints would take N dependent
+        multiply-adds."""
+        if not constraints:
+            return self.zero()
+        cs = concatenate([self._flat(c) for c in constraints])  # (N, *shape)
+        n = cs.shape[0]
+        return sum_dim(mul(cs, _flip0(power_stack(alpha, n))), 0)
+
+    def _flat(self, c: GL2) -> GL2:
+        """A constraint as (k, *shape): its leading axes beyond the point
+        shape flattened in C order, (1, *shape) for a point-shaped one."""
+        extra = max(len(c.shape) - self.point_ndim, 0)
+        lead = tuple(c.shape[:extra]) or (1,)
+        return broadcast_to(c, lead + self._shape).reshape(-1, *self._shape)
+
+
+_CONSTS: dict = {}
+_INDEX: dict = {}
+
+
+def _index(idx, device):
+    """A static index table as a slice (an ascending run) or an int64
+    tensor on `device`, converted once per (table, device)."""
+    a = np.asarray(idx, dtype=np.int64).reshape(-1)
+    key = (a.tobytes(), str(device))
+    out = _INDEX.get(key)
+    if out is None:
+        if a.size and np.array_equal(a, np.arange(a[0], a[0] + a.size)):
+            out = slice(int(a[0]), int(a[0]) + a.size)
+        else:
+            out = torch.as_tensor(a, device=device)
+        _INDEX[key] = out
+    return out
+
+
+def _flip0(x: GL2) -> GL2:
+    return GL2(GL(x.c0.lo.flip(0), x.c0.hi.flip(0)),
+               GL(x.c1.lo.flip(0), x.c1.hi.flip(0)))
 
 
 def concatenate(elems, dim=0) -> GL2:
     return GL2(gl.concatenate([e.c0 for e in elems], dim),
                gl.concatenate([e.c1 for e in elems], dim))
+
+
+def power_stack(alpha: GL2, n: int) -> GL2:
+    """alpha^0, ..., alpha^(n-1) on a new leading axis, GL2 (n,
+    *alpha.shape), in log2(n) doubling steps: the powers so far times
+    alpha^len, alpha^len by repeated squaring."""
+    pw, a_k = ones((1, *alpha.shape), alpha.c0.device), alpha
+    while pw.shape[0] < n:
+        pw = concatenate([pw, mul(pw, a_k[None])])
+        a_k = square(a_k)
+    return pw[:n]
+
+
+def sum_dim(x: GL2, dim: int) -> GL2:
+    """The sum along `dim` (any length) by halving: log2(n) additions of
+    tensors, where an addition per element would take n."""
+    x = tree_map(lambda a: a.movedim(dim, 0), x)
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        s = add(x[:h], x[h:2 * h])
+        x = s if x.shape[0] == 2 * h else concatenate([s, x[2 * h:]])
+    return x[0]
 
 
 def _shift_back(x: GL2, s: int, fill: GL2) -> GL2:

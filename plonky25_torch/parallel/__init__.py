@@ -1,1 +1,6 @@
-from .batch import BatchVerifier, stack_witnesses, tile_witness  # noqa: F401
+from .batch import (  # noqa: F401
+    BatchVerifier,
+    stack_witnesses,
+    tile_witness,
+    verify_proof_batch,
+)

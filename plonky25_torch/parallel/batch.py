@@ -16,7 +16,7 @@ from typing import Dict, List
 import torch
 
 from ..air import Air
-from ..proof import P3Config, Proof
+from ..proof import FriConfig, P3Config, Proof, derive_config
 from ..utils.tree import tree_map
 from ..verifier import get_verifier
 from ..witness import pack_witness
@@ -38,10 +38,15 @@ class BatchVerifier:
     def __init__(self, air: Air, config: P3Config, device="cuda"):
         self.base = get_verifier(air, config, device)
 
-    def verify_witnesses(self, ws: Dict, on_stage=None) -> torch.Tensor:
-        """ws: stacked witness (leading proof axis B) -> ok (B,) bool.
-        `on_stage` as in TorchVerifier.verify_witnesses."""
-        return self.base.verify_witnesses(ws, on_stage)["ok"]
+    def verify_witnesses(self, ws: Dict, on_stage=None,
+                         with_samples: bool = False):
+        """ws: stacked witness (leading proof axis B) -> ok (B,) bool; with
+        `with_samples`, (ok, samples), samples the GL (B, n) of every
+        Fiat-Shamir sample in order (plonky25_tpu.parallel.batch's
+        BatchVerifier.verify_witnesses).  `on_stage` as in
+        TorchVerifier.verify_witnesses."""
+        r = self.base.verify_witnesses(ws, on_stage)
+        return (r["ok"], r["samples"]) if with_samples else r["ok"]
 
     def verify(self, proofs: List[Proof]) -> torch.Tensor:
         """Verdicts (B,) of proofs that all pass the shape check for this
@@ -50,3 +55,11 @@ class BatchVerifier:
         cfg, dev = self.base.config, self.base.device
         return self.verify_witnesses(
             stack_witnesses([pack_witness(p, cfg, dev) for p in proofs]))
+
+
+def verify_proof_batch(proofs: List[Proof], air: Air, fri_config: FriConfig,
+                       device="cuda") -> torch.Tensor:
+    """Verdicts (B,) of same-shape proofs, the config derived from the
+    first (plonky25_tpu.parallel.batch.verify_proof_batch)."""
+    config = derive_config(proofs[0], fri_config)
+    return BatchVerifier(air, config, device).verify(proofs)

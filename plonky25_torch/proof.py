@@ -291,6 +291,13 @@ def proof_to_json(proof: Proof) -> dict:
     }
 
 
+def save_proof(proof: Proof, path: str) -> None:
+    """Write a proof in the reference's compact JSON format (no spaces
+    after separators), byte-equal to plonky25_tpu.proof.save_proof."""
+    with open(path, "w") as f:
+        json.dump(proof_to_json(proof), f, separators=(",", ":"))
+
+
 def derive_config(proof: Proof, fri_config: FriConfig) -> P3Config:
     """Shape-derived config, exactly as p3/mod.rs:74-87.
 

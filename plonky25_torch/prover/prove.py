@@ -15,7 +15,8 @@ Proofs are bit-identical to the JAX package's and the int oracle's
   * `_opened_fn`: openings at zeta and zeta * g (barycentric);
   * `_ro_fn`: the FRI input, the reduced openings at every LDE point;
   * `_fold_phase_raw`: one FRI commit phase (sibling rows, fold step);
-  * `_grind_fn`: one window of 2^16 proof-of-work witnesses.
+  * `_grind_fn`: one window of proof-of-work witnesses (2^16, fewer for a
+    low proof_of_work_bits: `grind_window`).
 
 Every stage takes a leading proof axis B: one proof is a batch of one, and
 `batch_prove.BatchProver` runs the same stages on B traces in lockstep.
@@ -40,7 +41,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..air import Air, VerifierConstraintFolder, check_multistage_consistency
+from ..air import (Air, Main, VerifierConstraintFolder,
+                   check_multistage_consistency)
 from ..constants import EXT_DEGREE, GOLDILOCKS_P as P
 from ..device import resolve_device
 from ..fields import gl, gl2
@@ -64,23 +66,20 @@ from ..proof import (
 )
 from ..refimpl.field import Gl
 from ..utils.bits import log2_ceil, log2_strict, reverse_bits_len_u32
+from ..utils.tree import tree_map
 from ..verifier import _publics
 from .device_challenger import DeviceChallenger
 
 GRIND_WINDOW = 1 << 16
 
 
-class _Main:
-    """The folder's view of the trace (and the stage-2 columns) at the
-    quotient points."""
-
-    def __init__(self, trace_local, trace_next, stage2_local=None,
-                 stage2_next=None):
-        self.trace_local = trace_local
-        self.trace_next = trace_next
-        self.stage2_local = stage2_local
-        self.stage2_next = stage2_next
-        self.quotient_chunks = []
+def grind_window(fri_config: FriConfig) -> int:
+    """PoW witnesses one grind launch tries: 2^(bits + 4), at most
+    GRIND_WINDOW.  A window holds a witness unless all its 2^(bits + 4)
+    tries miss (probability below e^-16), so a low-bit grind costs a
+    small launch; the windows ascend, so the first witness found is the
+    same whatever the window."""
+    return min(GRIND_WINDOW, 1 << (fri_config.proof_of_work_bits + 4))
 
 
 class TorchProver:
@@ -168,16 +167,18 @@ class TorchProver:
         is_first, is_last, is_trans, inv_zh = self.selectors()
 
         def local_next(c: GL):
+            """The columns (B, W, H) on the quotient coset and one row on,
+            each as one GL2 (W, B, q): a view of the LDE with the column
+            axis leading, c1 a broadcast zero."""
             locals_ = coset_lde_pair(c, 1, self.q_log_n - self.log_n)
             # the next row on the quotient coset is a rotation of the
             # locals: g_t * 7 * g_q^j = 7 * g_q^(j + 2^lqd)
             nexts = GL(torch.roll(locals_.lo, -self.n_chunks, -1),
                        torch.roll(locals_.hi, -self.n_chunks, -1))
-            return ([gl2.from_base(locals_[:, i]) for i in range(c.shape[1])],
-                    [gl2.from_base(nexts[:, i]) for i in range(c.shape[1])])
+            return _ext_columns_first(locals_), _ext_columns_first(nexts)
 
-        main = _Main(*local_next(cols),
-                     *(local_next(s2_cols) if self.s2w else ()))
+        main = Main(*local_next(cols), (),
+                    *(local_next(s2_cols) if self.s2w else ()))
         folder = VerifierConstraintFolder(
             ops=Ops((cols.shape[0], q_size), self.device),
             main=main,
@@ -259,10 +260,8 @@ class TorchProver:
         xs = self.ro_points()
         zeta_next = gl2.mul_base(zeta, gl.full((), self.g_t, self.device))
         w, s2w = self.width, self.s2w
-        pw = [gl2.ones(alpha_fri.shape, self.device)]
-        for _ in range(1, 2 * w + 2 * s2w + self.n_chunks * EXT_DEGREE):
-            pw.append(gl2.mul(pw[-1], alpha_fri))
-        pow_stack = gl2.stack(pw, dim=-1)                     # (B, T)
+        pow_stack = tree_map(lambda a: a.movedim(0, -1), gl2.power_stack(
+            alpha_fri, 2 * w + 2 * s2w + self.n_chunks * EXT_DEGREE))  # (B, T)
         qc_flat = qc.reshape(qc.shape[0], -1)
         groups = [(trace_lde, tl, zeta, 0), (trace_lde, tn, zeta_next, w)]
         if s2w:
@@ -275,9 +274,7 @@ class TorchProver:
             coef = pow_stack[..., k0:k0 + c, None]            # (B, C, 1)
             num = gl2.add_base(gl2.neg(p_at_z)[..., None], p_at_x)
             weighted = gl2.mul(coef, num)                     # (B, C, N)
-            acc = weighted[..., 0, :]
-            for i in range(1, c):
-                acc = gl2.add(acc, weighted[..., i, :])
+            acc = gl2.sum_dim(weighted, -2)
             sums.append(acc)
             dens.append(gl2.broadcast_to(
                 gl2.add_base(gl2.neg(z)[..., None], xs), acc.shape))
@@ -287,15 +284,16 @@ class TorchProver:
             ro = gl2.add(ro, gl2.mul(sums[g], inv_dens[g]))
         return ro
 
-    def _grind_fn(self, state_rest: GL, base: int):
-        """Try the witnesses [base, base + 2^16) for every proof of the
+    def _grind_fn(self, state_rest: GL, base: int,
+                  window: int = GRIND_WINDOW):
+        """Try the witnesses [base, base + window) for every proof of the
         batch in one lane-major launch: state_rest (B, 11) -> (found (B,),
         first offset (B,)) for the first w whose permute([w, rest]) has
         lane 11's low proof_of_work_bits zero."""
         b = state_rest.shape[0]
         dev = self.device
-        win = (1, b, GRIND_WINDOW)
-        w_lo = torch.arange(base, base + GRIND_WINDOW, dtype=torch.int64,
+        win = (1, b, window)
+        w_lo = torch.arange(base, base + window, dtype=torch.int64,
                             device=dev).expand(win)
         # witnesses < 2^32: lane 0's hi limb is zero
         lo = torch.cat([w_lo, state_rest.lo.T[:, :, None].expand(11, *win[1:])])
@@ -380,14 +378,14 @@ class TorchProver:
         state_rest = ch.state[..., 1:12]
         found = torch.zeros(b, dtype=torch.bool, device=self.device)
         wit = torch.zeros(b, dtype=torch.int64, device=self.device)
-        base = 0
+        base, window = 0, grind_window(fc)
         while True:
-            f, off = self._grind_fn(state_rest, base)
+            f, off = self._grind_fn(state_rest, base, window)
             wit = torch.where(f & ~found, base + off, wit)
             found |= f
             if bool(found.all()):
                 break
-            base += GRIND_WINDOW
+            base += window
             if base >= 1 << 32:
                 raise RuntimeError("no proof-of-work witness below 2^32")
         ch.observe(GL(wit, torch.zeros_like(wit)))
@@ -484,6 +482,15 @@ class TorchProver:
                 query_openings=query_openings),
             degree_bits=self.log_n,
         )
+
+
+def _ext_columns_first(x: GL) -> GL2:
+    """Base columns (B, W, q) as the GF(p^2) view (W, B, q): c0 the columns
+    moved axis-first (no copy), c1 a zero broadcast to that shape."""
+    c0 = GL(x.lo.movedim(1, 0), x.hi.movedim(1, 0))
+    zero = torch.zeros((), dtype=torch.int64, device=x.lo.device)
+    z = zero.expand(c0.shape)
+    return GL2(c0, GL(z, z))
 
 
 def _gather_last(x: GL, idx: torch.Tensor) -> GL:

@@ -30,7 +30,8 @@ from typing import Dict
 
 import torch
 
-from .air import Air, VerifierConstraintFolder, check_multistage_consistency
+from .air import (Air, Main, VerifierConstraintFolder,
+                  check_multistage_consistency)
 from .challenger import SymbolicChallenger, run_transcript
 from .constants import EXT_DEGREE, RATE
 from .device import resolve_device
@@ -61,17 +62,9 @@ class VerifyResult:
     query_indices: object = None
 
 
-class _Main:
-    """Adapter giving the AIR folder the reference's OpenedValues view, and
-    a multi-stage AIR's stage-2 columns."""
-
-    def __init__(self, trace_local, trace_next, quotient_chunks,
-                 stage2_local=None, stage2_next=None):
-        self.trace_local = trace_local
-        self.trace_next = trace_next
-        self.quotient_chunks = quotient_chunks
-        self.stage2_local = stage2_local
-        self.stage2_next = stage2_next
+def _columns_first(x: GL2) -> GL2:
+    """(B, w) -> the view (w, B)."""
+    return tree_map(lambda a: a.T, x)
 
 
 class TorchVerifier:
@@ -86,9 +79,11 @@ class TorchVerifier:
 
     def __init__(self, air: Air, config: P3Config, device="cuda"):
         self.device = resolve_device(device)
+        # the JAX verifier's order: an inconsistent AIR is a ValueError
+        # whatever the proof's extension degree
+        check_multistage_consistency(air)
         if config.ext_degree != 2:
             raise NotImplementedError("only D=2 proofs are ported")
-        check_multistage_consistency(air)
         self.s2w = config.stage2_width
         self.n_challenges = air.num_challenges() if self.s2w else 0
         self.air = air
@@ -278,10 +273,8 @@ class TorchVerifier:
                 x_of_h[h] = gl.mul(gl.full((), 7, dev),
                                    gl.pow_u32(Gl.two_adic_generator(h), rev, h))
 
-        pows = [gl2.ones((B,), dev)]                         # alpha_fri^k
-        for _ in range(self.max_alpha_pow - 1):
-            pows.append(gl2.mul(pows[-1], alpha_fri))
-        pow_stack = gl2.stack(pows, dim=1)                   # (B, K)
+        pow_stack = tree_map(lambda a: a.T, gl2.power_stack(
+            alpha_fri, self.max_alpha_pow))                  # (B, K)
 
         h_trace, h_quot = self.mat_heights[0], self.mat_heights[-1]
         nq = self.quotient_degree * EXT_DEGREE
@@ -307,10 +300,7 @@ class TorchVerifier:
                 gl2.broadcast_to(gl2.neg(p_at_z)[:, None, :], (B, Q, C)),
                 p_at_x)
             weighted = gl2.mul(pow_stack[:, None, k0:k0 + C], num)
-            total = weighted[..., 0]
-            for c in range(1, C):
-                total = gl2.add(total, weighted[..., c])
-            sums.append(total)                               # (B, Q)
+            sums.append(gl2.sum_dim(weighted, -1))           # (B, Q)
             dens.append(gl2.add_base(
                 gl2.broadcast_to(gl2.neg(z)[:, None], (B, Q)), x_of_h[h]))
             heights.append(h)
@@ -460,14 +450,14 @@ class TorchVerifier:
         d_last = gl2.sub_base(unshifted, base(Gl.inv(self.trace_domain.gen())))
         invs3 = gl2.inv(gl2.stack([d_first, d_last, z_h]))
 
-        w = self.config.trace_width
-        main = _Main(
-            trace_local=[trace_local[:, i] for i in range(w)],
-            trace_next=[trace_next[:, i] for i in range(w)],
+        main = Main(
+            _columns_first(trace_local), _columns_first(trace_next),
             quotient_chunks=[[quotient_chunks[:, c, e] for e in range(EXT_DEGREE)]
                              for c in range(self.quotient_degree)],
-            stage2_local=[stage2_local[:, i] for i in range(self.s2w)],
-            stage2_next=[stage2_next[:, i] for i in range(self.s2w)],
+            stage2_local_vec=(_columns_first(stage2_local) if self.s2w
+                              else None),
+            stage2_next_vec=(_columns_first(stage2_next) if self.s2w
+                             else None),
         )
         folder = VerifierConstraintFolder(
             ops=gl2.Ops((B,), dev),

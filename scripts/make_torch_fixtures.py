@@ -1,8 +1,8 @@
 """Write the fixtures that hold the PyTorch port against the JAX package.
 
-    python scripts/make_torch_fixtures.py
+    python scripts/make_torch_fixtures.py [group ...]
 
-Writes, into tests/fixtures/:
+Writes, into tests/fixtures/ (every group by default):
 
   proof_fibonacci_refimpl.json   the fib(64) proof of the pure-int prover,
       prove(FibonacciAir(), fibonacci_trace(64), FriConfig(1, 100, 16)) —
@@ -31,7 +31,30 @@ Writes, into tests/fixtures/:
       oracle (refimpl.commit.build_mmcs_tree) over five seeded matrices of
       heights 2^12, 2^12, 2^6, 2^3, 1 and widths 3, 2, 4, 5, 1, with the
       openings (open_mmcs) at 100 seeded indices, each accepted by
-      refimpl.commit.verify_batch.
+      refimpl.commit.verify_batch;
+  proof_keccak32_refimpl.json  (group `keccak`) the int oracle's
+      one-keccak-f KeccakAir proof of tests/test_keccak.py:58-64 (32 rows
+      x 2,633 columns, seed 21, FriConfig(1, 20, 8)), written by
+      save_proof (2,067,930 bytes);
+  proof_keccak32_expected.json  what the JAX verify_proof and the oracle
+      derive from it (alpha, zeta, the FRI betas, the query indices, the
+      verdict) and from its a_prime-bit tamper (the verdict fields, the
+      oracle's verdict); 1,773 bytes.  The group took 292.8 s on the CPU
+      sandbox, most of it the oracle's proof;
+  proof_keccak_expected.json  (group `keccak_digest`) the JAX device
+      prover's (TpuProver) KeccakAir proof at FriConfig(1, 100, 16) of
+      2^12 rows x 2,633 columns (170 seeded permutations), held by its
+      digest: the seeded inputs, the
+      sha256 of its compact JSON, the commitments, alpha, zeta, the PoW
+      witness and the query indices (from the JAX verifier's transcript);
+      89,069 bytes.  TpuProver took 3,255.8 s for it on the CPU sandbox
+      (shared with other jobs; most of it XLA compiling the reduced-
+      opening stage), above the 20 minutes aimed at, and the full height
+      was kept (a trial at 2^8 rows took 741 s);
+  torch_tests_jax_values.json  (group `jax_values`) JAX results that
+      tests/test_torch_verifier.py, test_torch_multistage.py and
+      test_torch_prover.py compare with (see jax_values below); 13,638
+      bytes, 202.4 s.
 
 `chip_smoke.py` and the port's tests read these files, so the port can be
 checked on a machine without JAX.  This script may import plonky25_tpu; the
@@ -40,6 +63,8 @@ port never does.
 
 from __future__ import annotations
 
+import argparse
+import copy
 import dataclasses
 import hashlib
 import json
@@ -63,15 +88,23 @@ from plonky25_tpu.models.fibonacci import (  # noqa: E402
     FibonacciAir,
     fibonacci_trace,
 )
+from plonky25_tpu.models.keccak_air import (  # noqa: E402
+    KeccakAir,
+    keccak_trace,
+    keccak_trace_np,
+)
 from plonky25_tpu.models.multiset_air import (  # noqa: E402
     MultisetAir,
     pad_pairs,
 )
 from plonky25_tpu.models.rlc_air import RlcAir  # noqa: E402
+from plonky25_tpu.parallel.batch import BatchVerifier  # noqa: E402
 from plonky25_tpu.proof import (  # noqa: E402
     FriConfig,
     derive_config,
+    proof_from_json,
     proof_to_json,
+    save_proof,
 )
 from plonky25_tpu.prover.prove import TpuProver  # noqa: E402
 from plonky25_tpu.refimpl.commit import (  # noqa: E402
@@ -268,14 +301,234 @@ def mmcs():
     return [path]
 
 
+FC_KECCAK = FriConfig(log_blowup=1, num_queries=20, proof_of_work_bits=8)
+VERDICT_FIELDS = ("ok", "pow_ok", "merkle_ok", "fold_ok", "quotient_ok",
+                  "shape_ok")
+
+
+def _verdict(r):
+    return {k: bool(np.asarray(getattr(r, k))) for k in VERDICT_FIELDS}
+
+
+def _fc_json(fc):
+    return {"log_blowup": fc.log_blowup, "num_queries": fc.num_queries,
+            "proof_of_work_bits": fc.proof_of_work_bits}
+
+
+def keccak():
+    """The int oracle's one-keccak-f proof of tests/test_keccak.py:58-64
+    (32 rows, seed 21, FriConfig(1, 20, 8)), and what the JAX verifier and
+    the oracle derive from it and from its a_prime-bit tamper."""
+    air = KeccakAir()
+    rng = random.Random(21)
+    inp = [rng.getrandbits(64) for _ in range(25)]
+    rows = keccak_trace([inp])
+    assert np.array_equal(np.asarray(rows, dtype=np.int64),
+                          keccak_trace_np([inp]))
+    proof = prove(air, rows, FC_KECCAK)
+    proof_path = os.path.join(OUT, "proof_keccak32_refimpl.json")
+    save_proof(proof, proof_path)
+    with open(proof_path) as f:
+        text = f.read()
+    assert text == json.dumps(proof_to_json(proof), separators=(",", ":"))
+    ref = ref_verify(proof, air, FC_KECCAK)
+    r = verify_proof(proof, air, FC_KECCAK)
+    assert ref.ok and bool(r.ok)
+    indices = [int(v) for v in np.asarray(r.query_indices)]
+    assert indices == ref.query_indices
+    assert _ext(r.alpha) == list(ref.alpha) and _ext(r.zeta) == list(ref.zeta)
+    # tests/test_keccak.py:91-99: an a_prime bit column's opening at zeta
+    bad = copy.deepcopy(proof)
+    v = bad.opened_values.trace_local[865 + 77]
+    bad.opened_values.trace_local[865 + 77] = ((v[0] + 1) % P, v[1])
+    ref_bad = ref_verify(bad, air, FC_KECCAK)
+    r_bad = verify_proof(bad, air, FC_KECCAK)
+    assert not ref_bad.ok and not bool(r_bad.ok)
+    expected = {
+        "inputs": inp,
+        "height": len(rows),
+        "fri_config": _fc_json(FC_KECCAK),
+        "bytes": len(text),
+        "sha256": hashlib.sha256(text.encode()).hexdigest(),
+        "alpha": list(ref.alpha),
+        "zeta": list(ref.zeta),
+        "alpha_fri": list(ref.alpha_fri),
+        "betas": [list(b) for b in ref.betas],
+        "query_indices": indices,
+        "verdict": _verdict(r),
+        "tamper_a_prime_bit": {"index": 865 + 77, "verdict": _verdict(r_bad),
+                               "oracle_ok": ref_bad.ok},
+    }
+    exp_path = os.path.join(OUT, "proof_keccak32_expected.json")
+    with open(exp_path, "w") as f:
+        json.dump(expected, f, indent=1)
+    return [proof_path, exp_path]
+
+
+KECCAK_LOG_N = 12
+
+
+def keccak_inputs(log_n):
+    """The seeded inputs of the full-width Keccak proof: as many whole
+    permutations as 2^log_n rows hold (170 at 2^12: 4,080 round rows and a
+    truncated dummy permutation on the zero state as padding).  The
+    fixture keeps them, and chip_smoke.py proves them."""
+    rng = np.random.default_rng(0xCECC + log_n)
+    n = (1 << log_n) // 24
+    return rng.integers(0, 1 << 64, size=(n, 25), dtype=np.uint64,
+                        endpoint=False).tolist()
+
+
+def keccak_digest():
+    """The JAX device prover's (TpuProver) KeccakAir proof of 2^12 rows at
+    FriConfig(1, 100, 16), held by its digest: the sha256 of its compact
+    JSON, the commitments, and the JAX verifier's transcript values."""
+    air, log_n = KeccakAir(), KECCAK_LOG_N
+    inputs = keccak_inputs(log_n)
+    rows = keccak_trace_np(inputs, 1 << log_n)
+    assert rows.shape == (1 << log_n, air.width())
+    t0 = time.time()
+    proof = TpuProver(air, log_n, FC).prove(rows)
+    print(f"TpuProver proved 2^{log_n} x {air.width()} in "
+          f"{time.time() - t0:.1f} s")
+    text = json.dumps(proof_to_json(proof), separators=(",", ":"))
+    cfg = derive_config(proof, FC)
+    v = get_verifier(air, cfg)
+    t = v._s_transcript(pack_witness(proof, cfg)["obs"])
+    fp = proof.opening_proof.fri_proof
+    expected = {
+        "height": 1 << log_n,
+        "fri_config": _fc_json(FC),
+        "inputs": inputs,
+        "bytes": len(text),
+        "sha256": hashlib.sha256(text.encode()).hexdigest(),
+        "trace_commit": proof.commitments.trace.value,
+        "quotient_commit": proof.commitments.quotient_chunks.value,
+        "phase_commits": [c.value for c in fp.commit_phase_commits],
+        "alpha": _ext(t["alpha"]),
+        "zeta": _ext(t["zeta"]),
+        "pow_witness": fp.pow_witness,
+        "query_indices": [int(i) for i in np.asarray(t["index"])],
+    }
+    path = os.path.join(OUT, "proof_keccak_expected.json")
+    with open(path, "w") as f:
+        json.dump(expected, f, separators=(",", ":"))
+    return [path]
+
+
+def _j_fields(r):
+    out = _verdict(r)
+    if r.shape_ok:
+        out["alpha"] = _ext(r.alpha)
+        out["zeta"] = _ext(r.zeta)
+        out["query_indices"] = [int(i) for i in np.asarray(r.query_indices)]
+    return out
+
+
+def _fib_tamper(proof, kind):
+    """tests/test_torch_verifier.py's tamper battery."""
+    p = copy.deepcopy(proof)
+    fp = p.opening_proof.fri_proof
+    if kind == "pow":
+        fp.pow_witness += 1
+    elif kind == "merkle_sibling":
+        p.opening_proof.query_openings[17][0].opening_proof[3][2] ^= 1
+    elif kind == "fold_sibling":
+        s = fp.query_proofs[5].commit_phase_openings[1]
+        s.sibling_value = (s.sibling_value[0] ^ 1, s.sibling_value[1])
+    elif kind == "final_poly":
+        fp.final_poly = (fp.final_poly[0] + 1, fp.final_poly[1])
+    return p
+
+
+def _rlc_trace_16():
+    """tests/test_torch_multistage.py's _trace(7): 16 seeded rows."""
+    rng = random.Random(7)
+    return [[rng.randrange(1 << 63), rng.randrange(1 << 63)]
+            for _ in range(16)]
+
+
+def jax_values():
+    """JAX results that the port's tests compare with, computed once here
+    instead of compiling JAX modules in every test run:
+
+      verifier   tests/test_torch_verifier.py's three proofs (the fib(64)
+                 fixture and artifacts/attestation_small.json's two): the
+                 JAX verify_proof fields, the transcript's samples, pow_ok
+                 and indices, the FRI betas and query indices, and the
+                 verify_proof fields of the fixture's four tampers;
+      rlc_batch  tests/test_torch_multistage.py's BatchVerifier lanes (the
+                 oracle's RLC proof of _trace(7) at FriConfig(1, 8, 4),
+                 then the same with stage2_local[0] changed): the JAX
+                 BatchVerifier's verdicts;
+      grind      tests/test_torch_prover.py's grind window (base 2^16,
+                 FriConfig(1, 8, 2)): JAX TpuProver._grind_fn's (found,
+                 first offset)."""
+    out = {"verifier": {}, "verifier_tamper": {}}
+    with open(os.path.join(ROOT, "artifacts", "attestation_small.json")) as f:
+        blob = json.load(f)
+    with open(os.path.join(OUT, "proof_fibonacci_refimpl.json")) as f:
+        cases = {"fixture": (json.load(f), _fc_json(FC))}
+    cases["small0"] = (blob["proofs"][0], blob["fc"])
+    cases["small1"] = (blob["proofs"][1], blob["fc"])
+    air = FibonacciAir()
+    for name, (obj, fc) in cases.items():
+        proof, fc = proof_from_json(obj), FriConfig(**fc)
+        cfg = derive_config(proof, fc)
+        v = get_verifier(air, cfg)
+        t = v._s_transcript(pack_witness(proof, cfg)["obs"])
+        chal = v.fri_challenges(proof)
+        out["verifier"][name] = {
+            "fields": _j_fields(verify_proof(proof, air, fc)),
+            "samples": [int(x) for x in gl.to_u64(t["samples"])],
+            "pow_ok": bool(t["pow_ok"]),
+            "index": [int(i) for i in np.asarray(t["index"])],
+            "betas": [list(b) for b in chal.betas],
+            "query_indices": list(chal.query_indices),
+        }
+        if name == "fixture":
+            for kind in ("pow", "merkle_sibling", "fold_sibling",
+                         "final_poly"):
+                out["verifier_tamper"][kind] = _j_fields(
+                    verify_proof(_fib_tamper(proof, kind), air, fc))
+    fc = FriConfig(1, 8, 4)
+    proof = prove(RlcAir(), _rlc_trace_16(), fc)
+    bad = copy.deepcopy(proof)
+    c0, c1 = bad.opened_values.stage2_local[0]
+    bad.opened_values.stage2_local[0] = ((c0 + 1) % P, c1)
+    bv = BatchVerifier(RlcAir(), derive_config(proof, fc))
+    out["rlc_batch"] = [bool(b) for b in np.asarray(bv.verify([proof, bad]))]
+    base = 1 << 16
+    rest = [random.Random(base).randrange(P) for _ in range(11)]
+    jp = TpuProver(FibonacciAir(), 4, FriConfig(1, 8, 2))
+    found, off = jp._grind_fn(gl.from_u64(rest), np.uint32(base))
+    out["grind"] = {"base": base, "rest": rest, "found": bool(found),
+                    "offset": int(off)}
+    path = os.path.join(OUT, "torch_tests_jax_values.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    return [path]
+
+
+GROUPS = {"fibonacci": fibonacci, "multistage": multistage, "mmcs": mmcs,
+          "keccak": keccak, "keccak_digest": keccak_digest,
+          "jax_values": jax_values}
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("groups", nargs="*", default=list(GROUPS),
+                    choices=list(GROUPS), metavar="group",
+                    help=f"fixture groups to write (all by default): "
+                         f"{', '.join(GROUPS)}")
+    args = ap.parse_args()
     os.makedirs(OUT, exist_ok=True)
-    for group in (fibonacci, multistage, mmcs):
+    for name in args.groups:
         t0 = time.time()
-        for path in group():
+        for path in GROUPS[name]():
             print(f"wrote {os.path.relpath(path, ROOT)} "
                   f"({os.path.getsize(path)} bytes)")
-        print(f"{group.__name__} took {time.time() - t0:.1f} s")
+        print(f"{name} took {time.time() - t0:.1f} s")
 
 
 if __name__ == "__main__":

@@ -11,10 +11,13 @@ import torch
 
 import plonky25_torch.proof as tproof
 import plonky25_tpu.proof as jproof
+from plonky25_torch.fields import gl as tgl
 from plonky25_torch.models import FibonacciAir as TFib
 from plonky25_torch.parallel.batch import BatchVerifier as TBatch
-from plonky25_torch.parallel.batch import stack_witnesses, tile_witness
+from plonky25_torch.parallel.batch import (stack_witnesses, tile_witness,
+                                          verify_proof_batch)
 from plonky25_torch.witness import pack_witness as t_pack
+from plonky25_tpu.fields import gl as jgl
 from plonky25_tpu.models.fibonacci import FibonacciAir as JFib
 from plonky25_tpu.parallel.batch import BatchVerifier as JBatch
 from plonky25_tpu.parallel.batch import stack_witnesses as j_stack
@@ -22,6 +25,18 @@ from plonky25_tpu.witness import pack_witness as j_pack
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FC = dict(log_blowup=1, num_queries=100, proof_of_work_bits=16)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module's PyTorch work: the test run
+    shares the CPU between several worker processes, and PyTorch's default
+    of one thread per core in each of them oversubscribes it (see
+    tests/test_torch_multistage.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _tampered(proof):
@@ -46,13 +61,41 @@ def port_batch(proofs):
     return TBatch(TFib(), cfg, device="cpu"), cfg
 
 
-def test_batch_verdicts_match_jax(proofs, port_batch):
+@pytest.fixture(scope="module")
+def jax_batch(proofs):
+    """The JAX BatchVerifier's (ok, samples) on the three lanes."""
+    j_cfg = jproof.derive_config(proofs["j"][0], jproof.FriConfig(**FC))
+    ok, samples = JBatch(JFib(), j_cfg).verify_witnesses(
+        j_stack([j_pack(p, j_cfg) for p in proofs["j"]]), with_samples=True)
+    return np.asarray(ok).tolist(), jgl.to_u64(samples).tolist()
+
+
+def test_batch_verdicts_match_jax(proofs, port_batch, jax_batch):
     bv, _ = port_batch
     got = bv.verify(proofs["t"])
-    j_cfg = jproof.derive_config(proofs["j"][0], jproof.FriConfig(**FC))
-    want = JBatch(JFib(), j_cfg).verify_witnesses(
-        j_stack([j_pack(p, j_cfg) for p in proofs["j"]]))
-    assert got.tolist() == np.asarray(want).tolist() == [True, False, True]
+    want = jax_batch[0]
+    assert got.tolist() == want == [True, False, True]
+
+
+def test_with_samples_matches_jax(proofs, port_batch, jax_batch):
+    """with_samples: (ok, samples), samples the (B, n) array of every
+    Fiat-Shamir sample in JAX's order."""
+    bv, cfg = port_batch
+    ws = stack_witnesses([t_pack(p, cfg, "cpu") for p in proofs["t"]])
+    ok, samples = bv.verify_witnesses(ws, with_samples=True)
+    assert ok.tolist() == jax_batch[0]
+    assert tgl.to_u64(samples).tolist() == jax_batch[1]
+    assert samples.shape[0] == 3 and len(jax_batch[1]) == 3
+    assert torch.equal(bv.verify_witnesses(ws), ok)
+
+
+def test_verify_proof_batch(proofs):
+    from plonky25_torch import parallel
+
+    got = parallel.verify_proof_batch(proofs["t"], TFib(),
+                                      tproof.FriConfig(**FC), device="cpu")
+    assert got.tolist() == [True, False, True]
+    assert parallel.verify_proof_batch is verify_proof_batch
 
 
 def test_batch_fields_match_single_proof_runs(proofs, port_batch):

@@ -24,6 +24,18 @@ WIDTHS = [3, 2, 4, 5]
 INDICES = list(range(8))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module's PyTorch work: the test run
+    shares the CPU between several worker processes, and PyTorch's default
+    of one thread per core in each of them oversubscribes it (see
+    tests/test_torch_multistage.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pack(mats, levels, indices):
     """Opened rows grouped tallest first (equal heights merged in batch
     order), as numpy uint64 arrays, with the oracle's openings."""

@@ -8,6 +8,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from plonky25_tpu.fields import gl as jgl
 from plonky25_tpu.fields.extension import GL2 as JGL2
@@ -20,6 +21,18 @@ from plonky25_torch.fields import gl, gl2
 from plonky25_torch.ops import ntt as tntt
 
 P = 0xFFFFFFFF00000001
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module's PyTorch work: the test run
+    shares the CPU between several worker processes, and PyTorch's default
+    of one thread per core in each of them oversubscribes it (see
+    tests/test_torch_multistage.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cols(log_n, seed, width=3):

@@ -47,6 +47,18 @@ FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "proof_fibonacci_refimpl.json")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module's PyTorch work: the test run
+    shares the CPU between several worker processes, and PyTorch's default
+    of one thread per core in each of them oversubscribes it (see
+    tests/test_torch_multistage.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ints(x):
     """A port GL / GL2 or a JAX GL / GL2 -> nested Python ints."""
     if hasattr(x, "c0"):
@@ -223,9 +235,16 @@ def test_stage_fold_phase(stages, log_folded):
 
 
 def test_stage_grind_window(stages):
+    """JAX TpuProver._grind_fn's (found, offset) on this window is computed
+    once by scripts/make_torch_fixtures.py (tests/fixtures/
+    torch_tests_jax_values.json, "grind")."""
     base = 1 << 16
     rest = [random.Random(base).randrange(P) for _ in range(11)]
-    found, off = stages["jp"]._grind_fn(jgl.from_u64(rest), np.uint32(base))
+    with open(os.path.join(os.path.dirname(__file__), "fixtures",
+                           "torch_tests_jax_values.json")) as f:
+        want = json.load(f)["grind"]
+    assert (want["base"], want["rest"]) == (base, rest)
+    found, off = want["found"], want["offset"]
     t_found, t_off = stages["tp"]._grind_fn(gl.from_u64([rest], "cpu"), base)
     assert bool(t_found[0]) == bool(found) and int(t_off[0]) == int(off)
 

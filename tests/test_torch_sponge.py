@@ -12,6 +12,18 @@ from plonky25_tpu.fields import gl as jgl
 from plonky25_tpu.ops import sponge as js
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module's PyTorch work: the test run
+    shares the CPU between several worker processes, and PyTorch's default
+    of one thread per core in each of them oversubscribes it (see
+    tests/test_torch_multistage.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _vals(shape, seed):
     return np.random.default_rng(seed).integers(0, P, size=shape,
                                                 dtype=np.uint64)

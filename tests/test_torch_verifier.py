@@ -3,7 +3,10 @@ JAX package's, field for field: the fixture proof
 (tests/fixtures/proof_fibonacci_refimpl.json, made by
 scripts/make_torch_fixtures.py) and the two small proofs of
 artifacts/attestation_small.json, the transcript, the tamper battery of
-tests/test_verifier_e2e.py, and the witness carried across from JAX."""
+tests/test_verifier_e2e.py, and the witness carried across from JAX.  The
+JAX verifier's results on these proofs are computed once by
+scripts/make_torch_fixtures.py (tests/fixtures/torch_tests_jax_values.json)
+instead of compiling the JAX verifier in every run."""
 
 import copy
 import json
@@ -25,13 +28,24 @@ from plonky25_torch.verifier import verify_proof as t_verify
 from plonky25_torch.witness import pack_witness as t_pack
 from plonky25_tpu.fields import gl as jgl
 from plonky25_tpu.models.fibonacci import FibonacciAir as JFib
-from plonky25_tpu.verifier import get_verifier as j_get_verifier
 from plonky25_tpu.verifier import verify_proof as j_verify
 from plonky25_tpu.witness import pack_witness as j_pack
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 CASES = ["fixture", "small0", "small1"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for this module's PyTorch work: the test run
+    shares the CPU between several worker processes, and PyTorch's default
+    of one thread per core in each of them oversubscribes it (see
+    tests/test_torch_multistage.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _load_case(name):
@@ -45,22 +59,37 @@ def _load_case(name):
     return blob["proofs"][int(name[-1])], blob["fc"]
 
 
-class Case:
-    """One proof in both packages' types, with both packages' verdicts."""
+def _jax_fields(d):
+    """A result of the JAX verify_proof as stored by the fixture script:
+    the fields of _fields, alpha and zeta as tuples."""
+    return {k: tuple(v) if k in ("alpha", "zeta") else v
+            for k, v in d.items()}
 
-    def __init__(self, name):
+
+@pytest.fixture(scope="module")
+def jax_values():
+    with open(os.path.join(FIXTURES, "torch_tests_jax_values.json")) as f:
+        return json.load(f)
+
+
+class Case:
+    """One proof in both packages' types, with both packages' verdicts (the
+    JAX package's from the fixture file)."""
+
+    def __init__(self, name, jax_values):
         obj, fc = _load_case(name)
         self.t_proof = tproof.proof_from_json(obj)
         self.j_proof = jproof.proof_from_json(obj)
         self.t_fc = tproof.FriConfig(**fc)
         self.j_fc = jproof.FriConfig(**fc)
         self.t_result = t_verify(self.t_proof, TFib(), self.t_fc, device="cpu")
-        self.j_result = j_verify(self.j_proof, JFib(), self.j_fc)
+        self.jax = jax_values["verifier"][name]
+        self.j_fields = _jax_fields(self.jax["fields"])
 
 
 @pytest.fixture(scope="module")
-def cases():
-    return {name: Case(name) for name in CASES}
+def cases(jax_values):
+    return {name: Case(name, jax_values) for name in CASES}
 
 
 @pytest.fixture(scope="module")
@@ -114,7 +143,7 @@ def test_fixture_accepted_with_the_expected_transcript(cases, expected):
 @pytest.mark.parametrize("name", CASES)
 def test_result_fields_match_jax(cases, name):
     c = cases[name]
-    assert _t_fields(c.t_result) == _j_fields(c.j_result)
+    assert _t_fields(c.t_result) == c.j_fields
     assert _t_fields(c.t_result)["ok"]
 
 
@@ -122,19 +151,15 @@ def test_result_fields_match_jax(cases, name):
 def test_transcript_samples_match_jax(cases, name):
     c = cases[name]
     t_cfg = tproof.derive_config(c.t_proof, c.t_fc)
-    j_cfg = jproof.derive_config(c.j_proof, c.j_fc)
     tv = t_get_verifier(TFib(), t_cfg, "cpu")
-    jv = j_get_verifier(JFib(), j_cfg)
+    j = c.jax
     t = tv._transcript_fn(t_pack(c.t_proof, t_cfg, "cpu")["obs"][None])
-    j = jv._s_transcript(j_pack(c.j_proof, j_cfg)["obs"])
-    assert tgl.to_u64(t["samples"][0]).tolist() == \
-        jgl.to_u64(j["samples"]).tolist()
-    assert t["pow_ok"].tolist() == [bool(j["pow_ok"])]
-    assert t["index"][0].tolist() == np.asarray(j["index"]).tolist()
+    assert tgl.to_u64(t["samples"][0]).tolist() == j["samples"]
+    assert t["pow_ok"].tolist() == [j["pow_ok"]]
+    assert t["index"][0].tolist() == j["index"]
     chal = tv.fri_challenges(c.t_proof)
-    j_chal = jv.fri_challenges(c.j_proof)
-    assert chal.betas == j_chal.betas
-    assert chal.query_indices == j_chal.query_indices
+    assert [list(b) for b in chal.betas] == j["betas"]
+    assert chal.query_indices == j["query_indices"]
 
 
 def test_fri_challenges_match_the_expected_file(cases, expected):
@@ -163,11 +188,11 @@ def _tamper(proof, kind):
 @pytest.mark.parametrize("kind, flag", [
     ("pow", "pow_ok"), ("merkle_sibling", "merkle_ok"),
     ("fold_sibling", "fold_ok"), ("final_poly", "fold_ok")])
-def test_tamper_rejected_like_jax(cases, kind, flag):
+def test_tamper_rejected_like_jax(cases, jax_values, kind, flag):
     c = cases["fixture"]
     t = _t_fields(t_verify(_tamper(c.t_proof, kind), TFib(), c.t_fc,
                            device="cpu"))
-    j = _j_fields(j_verify(_tamper(c.j_proof, kind), JFib(), c.j_fc))
+    j = _jax_fields(jax_values["verifier_tamper"][kind])
     assert t == j
     assert not t["ok"] and not t[flag]
 
@@ -269,3 +294,85 @@ def test_batch_all_fn_matches_jax_merkle_walks(widths, depths):
         commits.append(tgl.from_u64(root, "cpu"))
     got = v._batch_all_fn(torch.from_numpy(index), vals, sibs, commits)
     assert got.tolist() == want.tolist()
+
+
+def test_save_proof_is_byte_equal_to_jax(cases, tmp_path):
+    """save_proof writes the compact JSON of JAX's save_proof; the fixture
+    round-trips through it byte for byte."""
+    c = cases["fixture"]
+    ours, theirs = tmp_path / "t.json", tmp_path / "j.json"
+    tproof.save_proof(c.t_proof, str(ours))
+    jproof.save_proof(c.j_proof, str(theirs))
+    with open(os.path.join(FIXTURES, "proof_fibonacci_refimpl.json")) as f:
+        fixture = f.read()
+    assert ours.read_text() == theirs.read_text() == fixture
+    assert tproof.proof_to_json(tproof.load_proof(str(ours))) == \
+        json.loads(fixture)
+
+
+def test_error_classes_match_jax():
+    import plonky25_torch
+    import plonky25_torch.errors as terr
+    import plonky25_tpu.errors as jerr
+
+    for name in ("P25Error", "FriError", "InvalidProofShape",
+                 "InvalidPowWitness"):
+        t, j = getattr(terr, name), getattr(jerr, name)
+        assert [k.__name__ for k in t.__mro__] == \
+            [k.__name__ for k in j.__mro__]
+        assert getattr(plonky25_torch, name) is t
+    assert issubclass(terr.InvalidPowWitness, terr.FriError)
+    assert plonky25_torch.check_proof_shape is terr.check_proof_shape
+
+
+def test_inconsistent_air_is_refused_before_the_d2_guard():
+    """An AIR with a challenge and no stage-2 matrix, at ext_degree 3: the
+    JAX verifier raises the consistency check's ValueError before its D=2
+    guard, and so does the port."""
+    import dataclasses
+
+    from plonky25_torch.verifier import TorchVerifier
+    from plonky25_tpu.verifier import TpuVerifier
+
+    class TBad(TFib):
+        def num_challenges(self):
+            return 1
+
+    class JBad(JFib):
+        def num_challenges(self):
+            return 1
+
+    obj, fc = _load_case("fixture")
+    t_cfg = dataclasses.replace(tproof.derive_config(
+        tproof.proof_from_json(obj), tproof.FriConfig(**fc)), ext_degree=3)
+    j_cfg = dataclasses.replace(jproof.derive_config(
+        jproof.proof_from_json(obj), jproof.FriConfig(**fc)), ext_degree=3)
+    with pytest.raises(ValueError) as t:
+        TorchVerifier(TBad(), t_cfg, device="cpu")
+    with pytest.raises(ValueError) as j:
+        TpuVerifier(JBad(), j_cfg)
+    assert str(t.value) == str(j.value)
+    assert "num_challenges()=1 requires stage2_width() > 0" in str(t.value)
+    with pytest.raises(NotImplementedError):
+        TorchVerifier(TFib(), t_cfg, device="cpu")
+
+
+def test_exports_match_jax():
+    """The names plonky25_tpu and plonky25_tpu.parallel export, apart from
+    the multi-device ones (a later slice), are exported by the port."""
+    import plonky25_torch
+    import plonky25_torch.parallel as tpar
+    import plonky25_tpu
+    import plonky25_tpu.parallel as jpar
+
+    top = ["FriConfig", "P3Config", "Proof", "load_proof", "proof_from_json",
+           "proof_to_json", "save_proof", "derive_config", "Air",
+           "VerifierConstraintFolder", "FilteredAirBuilder", "P25Error",
+           "FriError", "InvalidProofShape", "InvalidPowWitness",
+           "check_proof_shape"]
+    par = ["BatchVerifier", "stack_witnesses", "tile_witness",
+           "verify_proof_batch"]
+    for mod_t, mod_j, names in ((plonky25_torch, plonky25_tpu, top),
+                                (tpar, jpar, par)):
+        for name in names:
+            assert hasattr(mod_j, name) and hasattr(mod_t, name), name
