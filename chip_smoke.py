@@ -84,6 +84,23 @@ Phases, one line each; any failure exits non-zero:
   [batch-keccak]  `BatchVerifier` at B=256 copies of that proof x Q=100,
                 four lanes tampered: exact verdicts, queries/s, stage ms,
                 peak memory, device time;
+  [prove-keccak-chunked]  that 2^12 x 2,633 trace proved with every memory
+                strategy of the prover at once (S=4 quotient segments, 4
+                column groups, 4 LDE column chunks, both column slabs at
+                256 of the 2,633 columns): equal to the JAX digest; peak
+                memory beside the unchunked one, and the unchunked peak at
+                B=2;
+  [batch-prove-keccak]  `BatchProver` at B=8 x 2^12 x 2,633 (BASELINE.md
+                config 4) at S=4 with the default groups and slabs: the
+                fixture's trace and 7 of seeded inputs; the fixture lane
+                equal to the JAX digest, another byte-equal to the port's
+                single proof of its trace, all 8 accepted by one
+                `BatchVerifier` call beside a tampered copy, which is
+                rejected; first and steady latency (median of 2),
+                keccak-f/s, stage ms, launches by variant, device time and
+                busy share, peak memory;
+  [gl3]         GF(p^3) mul, inv and div (fields/extension3.py) on the card
+                against the int Gl3 on a seeded sample;
   [timing]      each kernel at each path's state counts against its bound
                 and its plain version; both kernels, each variant, at
                 N = 1, 2,048, 32,768 and 2^21 and across the crossover
@@ -100,8 +117,10 @@ imports nothing of JAX or plonky25_tpu; it needs the repository beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import hashlib
+import importlib
 import json
 import os
 import re
@@ -143,8 +162,10 @@ from plonky25_torch.proof import (  # noqa: E402
     load_proof,
     proof_to_json,
 )
-from plonky25_torch.prover import BatchProver, prove  # noqa: E402
-from plonky25_torch.prover.prove import grind_window  # noqa: E402
+from plonky25_torch.fields import gl3  # noqa: E402
+from plonky25_torch.prover import BatchProver, TorchProver, prove  # noqa: E402
+from plonky25_torch.prover.prove import grind_window, trace_columns  # noqa: E402
+from plonky25_torch.refimpl.field import Gl3  # noqa: E402
 from plonky25_torch.refimpl.keccak import keccak_f_flat  # noqa: E402
 from plonky25_torch.utils.bits import log2_ceil  # noqa: E402
 from plonky25_torch.utils.tree import tree_map  # noqa: E402
@@ -159,6 +180,8 @@ B_PROVE = 256
 LOG_N = 20
 KECCAK_LOG_N = 12       # BASELINE.md config 4: 2^12 x 2,633 traces
 B_KECCAK = 256
+B_KECCAK_PROVE = 8      # BASELINE.md config 4's batch (bench.py:146-154)
+S_KECCAK = 4            # its quotient_eval_chunks
 TAMPERED = ("pow", "merkle_sibling", "fold_sibling", "final_poly")
 AOS, SOA = "poseidon2_permute_w12", "poseidon2_permute_soa"
 # H100 SXM rates (NVIDIA data sheet; CUDA C Programming Guide throughput
@@ -678,6 +701,38 @@ def measure_prove(air, trace, fc, path, path_launches, path_shapes,
         "peak_allocated_gb": peak_gb, "profile": prof}
 
 
+def unchunked_prover(air, log_n, fc):
+    """A prover with every memory strategy off: S=1, one LDE chunk, slabs
+    as wide as the trace (with no_slab_budget, which keeps the reduced
+    openings' slab from being halved)."""
+    p = TorchProver(air, log_n, fc, DEVICE)
+    p.commit_col_chunks = 1
+    p._ro_col_slab = p._bary_col_slab = air.width()
+    return p
+
+
+@contextlib.contextmanager
+def no_slab_budget():
+    mod = importlib.import_module("plonky25_torch.prover.prove")
+    saved, mod.SLAB_BYTES = mod.SLAB_BYTES, float("inf")
+    try:
+        yield
+    finally:
+        mod.SLAB_BYTES = saved
+
+
+def keccak_traces(inputs, b):
+    """The digest fixture's 2^KECCAK_LOG_N-row trace and b - 1 traces of
+    seeded inputs (as many permutations), (b, H, 2,633) uint64."""
+    out = [keccak_trace_np(inputs, 1 << KECCAK_LOG_N)]
+    for i in range(1, b):
+        rng = np.random.default_rng(0xCECC + i)
+        seeded = rng.integers(0, 1 << 64, size=(len(inputs), 25),
+                              dtype=np.uint64).tolist()
+        out.append(keccak_trace_np(seeded, 1 << KECCAK_LOG_N))
+    return np.stack(out)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="write the measurements here as JSON")
@@ -789,13 +844,17 @@ def main(argv=None):
                                     SOA: {}}
     path_shapes["verify_batch_keccak"] = {
         AOS: verify_path_shapes(v_keccak, B_KECCAK), SOA: {}}
+    # the B=8 batch's proofs and a tampered copy through one BatchVerifier
+    path_shapes["verify_batch_prove_keccak"] = {
+        AOS: verify_path_shapes(v_keccak, B_KECCAK_PROVE + 1), SOA: {}}
     # every state count of the prover paths (the number of grind windows
     # does not change the counts)
     prove_runs = ((FibonacciAir(), 6, 1), (FibonacciAir(), 13, 1),
                   (FibonacciAir(), LOG_N, 1), (FibonacciAir(), 6, B_PROVE),
                   (RlcAir(), 6, 1), (MultisetAir(), 6, 1),
                   (RlcAir(), LOG_N, 1), (MultisetAir(), LOG_N, 1),
-                  (RlcAir(), 6, B_PROVE), (kair, 5, 1), (kair, KECCAK_LOG_N, 1))
+                  (RlcAir(), 6, B_PROVE), (kair, 5, 1), (kair, KECCAK_LOG_N, 1),
+                  (kair, KECCAK_LOG_N, B_KECCAK_PROVE))
     prove_sizes = {k: sorted(set().union(*(
         prove_path_shapes(log_n, fc, a, b, 1)[k] for a, log_n, b in prove_runs)))
         for k in (AOS, SOA)}
@@ -820,7 +879,8 @@ def main(argv=None):
         path_shapes[p][AOS] for p in ("verify_single", "verify_batch",
                                       "verify_batch_rlc", "mmcs_multi",
                                       "verify_keccak",
-                                      "verify_batch_keccak")))
+                                      "verify_batch_keccak",
+                                      "verify_batch_prove_keccak")))
         | set(prove_sizes[AOS]))
     for n in verify_sizes:
         err_aos = max(err_aos, aos_vs_plain(random_states(n, 7 * n + 1)))
@@ -1463,6 +1523,158 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     lap("batch-keccak")
+    # ---- the 2^12 Keccak trace with every memory strategy at once
+    ktraces = keccak_traces(expected_keccak["inputs"], B_KECCAK_PROVE)
+    kp = TorchProver(kair, KECCAK_LOG_N, fc, DEVICE,
+                     quotient_eval_chunks=S_KECCAK, quotient_col_groups=4)
+    kp.commit_col_chunks = 4
+    kp._ro_col_slab = kp._bary_col_slab = 256
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kch, path_launches["prove_keccak_chunked"] = counted(
+        lambda: kp.prove(ktraces[0]))
+    ch_ms = (time.perf_counter() - t0) * 1e3
+    ch_peak = torch.cuda.max_memory_allocated() / 1e9
+    got = proof_digest(kch, v_keccak, cfg_k)
+    for k, val in got.items():
+        check(val == expected_keccak[k], f"chunked Keccak 2^{KECCAK_LOG_N} "
+              f"{k} differs from the JAX package's")
+    path_shapes["prove_keccak_chunked"] = prove_path_shapes(
+        KECCAK_LOG_N, fc, kair, 1, kch.opening_proof.fri_proof.pow_witness
+        // grind_window(fc) + 1)
+    check_launches("prove_keccak_chunked",
+                   path_launches["prove_keccak_chunked"],
+                   path_shapes["prove_keccak_chunked"], split_max)
+    del kch
+    off = unchunked_prover(kair, KECCAK_LOG_N, fc)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with no_slab_budget():
+        off.prove_columns(trace_columns(ktraces[:2], DEVICE))
+    torch.cuda.synchronize()
+    b2_peak = torch.cuda.max_memory_allocated() / 1e9
+    del off
+    torch.cuda.empty_cache()
+    print(f"[prove-keccak-chunked] KeccakAir 2^{KECCAK_LOG_N} x {kair.width()}"
+          f" with S={kp.quotient_eval_chunks} quotient segments, "
+          f"{kp.quotient_col_groups} column groups, {kp.commit_col_chunks} LDE"
+          f" column chunks and both slabs at {kp._ro_col_slab} columns: equal "
+          f"to the JAX package's digest (sha256 {got['sha256'][:16]}..., "
+          f"commitments, alpha, zeta, PoW witness, query indices); "
+          f"{ch_ms:.1f} ms (first call of this prover); peak "
+          f"{ch_peak:.2f} GB (the unchunked [prove-keccak] proof's: "
+          f"{report['prove_keccak']['peak_allocated_gb']:.2f} GB); unchunked "
+          f"B=2 peak {b2_peak:.2f} GB; launches {AOS} "
+          f"{path_launches['prove_keccak_chunked'][AOS]}, {SOA} "
+          f"{path_launches['prove_keccak_chunked'][SOA]} (as the shape gives)")
+    report["prove_keccak_chunked"] = {
+        "ms": ch_ms, "peak_allocated_gb": ch_peak,
+        "unchunked_b2_peak_allocated_gb": b2_peak,
+        "launches": path_launches["prove_keccak_chunked"]}
+
+    lap("prove-keccak-chunked")
+    # ---- BatchProver at B=8 x 2^12 x 2,633, S=4
+    bpk = BatchProver(kair, KECCAK_LOG_N, fc, device=DEVICE,
+                      quotient_eval_chunks=S_KECCAK)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kproofs, path_launches["prove_batch_keccak"] = counted(
+        lambda: bpk.prove(ktraces))
+    bk_first = (time.perf_counter() - t0) * 1e3
+    bk_peak = torch.cuda.max_memory_allocated() / 1e9
+    got = proof_digest(kproofs[0], v_keccak, cfg_k)
+    for k, val in got.items():
+        check(val == expected_keccak[k], f"batch-prove-keccak lane 0 {k} "
+              f"differs from the JAX package's")
+    other = B_KECCAK_PROVE // 2
+    check(compact(kproofs[other]) == compact(
+        prove(kair, ktraces[other], fc, device=DEVICE)),
+        f"batch-prove-keccak lane {other} differs from the port's single "
+        f"proof of its trace")
+    bvk8 = BatchVerifier(kair, cfg_k, device=DEVICE)
+    lanes8 = kproofs + [tamper(kproofs[1], "final_poly")]
+    oks, path_launches["verify_batch_prove_keccak"] = counted(
+        lambda: bvk8.verify(lanes8))
+    check(oks.tolist() == [True] * B_KECCAK_PROVE + [False],
+          f"batch-prove-keccak: BatchVerifier verdicts {oks.tolist()}")
+    check_launches("verify_batch_prove_keccak",
+                   path_launches["verify_batch_prove_keccak"],
+                   path_shapes["verify_batch_prove_keccak"], split_max)
+    bk_windows = max(pr.opening_proof.fri_proof.pow_witness
+                     for pr in kproofs) // grind_window(fc) + 1
+    path_shapes["prove_batch_keccak"] = prove_path_shapes(
+        KECCAK_LOG_N, fc, kair, B_KECCAK_PROVE, bk_windows)
+    check_launches("prove_batch_keccak", path_launches["prove_batch_keccak"],
+                   path_shapes["prove_batch_keccak"], split_max)
+    del kproofs, lanes8
+    steady = []
+    for i in range(2):                  # stage events on the last
+        clock = StageClock() if i == 1 else None
+        t0 = time.perf_counter()
+        bpk.prove(ktraces, on_stage=clock)
+        torch.cuda.synchronize()
+        steady.append((time.perf_counter() - t0) * 1e3)
+    bk_stage_ms = clock.ms()
+    bk_ms = statistics.median(steady)
+    devbk, profbk = device_summary(profile_device_time(
+        lambda: bpk.prove(ktraces)), bk_ms)
+    kfs = B_KECCAK_PROVE * n_perm / (bk_ms / 1e3)
+    lk = path_launches["prove_batch_keccak"]
+    print(f"[batch-prove-keccak] BatchProver, B={B_KECCAK_PROVE} x 2^"
+          f"{KECCAK_LOG_N} x {kair.width()} KeccakAir traces (the fixture's "
+          f"and {B_KECCAK_PROVE - 1} of seeded inputs), S={S_KECCAK}, default "
+          f"groups and slabs: lane 0 equal to the JAX digest, lane {other} "
+          f"byte-equal to the single proof of its trace, all "
+          f"{B_KECCAK_PROVE} accepted by one BatchVerifier call and a "
+          f"tampered copy (final_poly) rejected; first batch "
+          f"{bk_first:.1f} ms, steady {bk_ms:.1f} ms (median of 2), "
+          f"{kfs:.1f} keccak-f/s; peak {bk_peak:.2f} GB; launches {AOS} "
+          f"{lk[AOS]} ({lk[AOS + '.split']} split), {SOA} {lk[SOA]} "
+          f"({lk[SOA + '.whole']} one thread per state, {lk[SOA + '.split']}"
+          f" split; {bk_windows} grind windows), as the shape gives; stage "
+          f"ms: " + ", ".join(f"{k} {t:.1f}" for k, t in bk_stage_ms.items())
+          + f"; {devbk}")
+    report["batch_prove_keccak"] = {
+        "B": B_KECCAK_PROVE, "S": S_KECCAK, "first_ms": bk_first,
+        "steady_ms": steady, "ms": bk_ms, "keccak_f_per_s": kfs,
+        "peak_allocated_gb": bk_peak, "stage_ms": bk_stage_ms,
+        "windows": bk_windows, "launches": lk,
+        "verify_launches": path_launches["verify_batch_prove_keccak"],
+        "profile": profbk}
+    del bpk, ktraces
+    torch.cuda.empty_cache()
+
+    lap("batch-prove-keccak")
+    # ---- GF(p^3) on the card against the int oracle
+    rng = np.random.default_rng(0x6F3)
+    n3 = 4096
+    a3, b3 = (rng.integers(0, P, size=(3, n3), dtype=np.uint64)
+              for _ in range(2))
+    a3[:, :4] = [[0, 1, P - 1, 1 << 32]] * 3
+    x3, y3 = (gl3.GL3(*(gl.from_u64(c, DEVICE) for c in v)) for v in (a3, b3))
+    rows_a = [tuple(int(v) for v in a3[:, i]) for i in range(n3)]
+    rows_b = [tuple(int(v) for v in b3[:, i]) for i in range(n3)]
+
+    def gl3_ints(x):
+        cs = [gl.to_u64(c).tolist() for c in x]
+        return [tuple(t) for t in zip(*cs)]
+
+    gl3_ms = {}
+    for name, fn, want in (
+            ("mul", lambda: gl3.mul(x3, y3),
+             [Gl3.mul(u, v) for u, v in zip(rows_a, rows_b)]),
+            ("inv", lambda: gl3.inv(y3), [Gl3.inv(v) for v in rows_b]),
+            ("div", lambda: gl3.div(x3, y3),
+             [Gl3.div(u, v) for u, v in zip(rows_a, rows_b)])):
+        check(gl3_ints(fn()) == want, f"GF(p^3) {name} on the card differs "
+              f"from the int Gl3")
+        gl3_ms[name] = cuda_ms(fn, 5)
+    print(f"[gl3] GF(p^3) mul, inv and div on {n3} seeded values on the card "
+          f"(edge values 0, 1, p - 1, 2^32 among them) equal to the int Gl3; "
+          f"ms per call " + ", ".join(f"{k} {t:.3f}" for k, t in gl3_ms.items()))
+    report["gl3"] = {"n": n3, "ms": gl3_ms}
+
+    lap("gl3")
     # ---- each kernel at each path's shapes
     clk_hz = max_sm_mhz * 1e6
     timed = {}
@@ -1557,7 +1769,7 @@ def main(argv=None):
     for kernel, src, rep, err in (
             (AOS, p2.KERNEL_SOURCE, p2.REPLACES, err_aos),
             (SOA, p2.SOA_KERNEL_SOURCE, p2.SOA_REPLACES, err_soa)):
-        main_path = paths[kernel]["prove"]
+        main_path = paths[kernel]["prove_batch_keccak"]
         kernel_rows.append({
             "name": kernel, "route": "cuda", "source": src, "replaces": rep,
             "launches": main_path["launches"],
@@ -1570,8 +1782,11 @@ def main(argv=None):
             "sass_bound_ms": main_path["sass_bound_ms"],
             "at_2_pow_21": same_n[kernel], "paths": paths[kernel],
             "split_max_states": split_max[kernel],
-            "launches_split": path_launches["prove"][kernel + ".split"],
-            "launches_whole": path_launches["prove"][kernel + ".whole"],
+            "main_path": "prove_batch_keccak",
+            "launches_split": path_launches["prove_batch_keccak"][
+                kernel + ".split"],
+            "launches_whole": path_launches["prove_batch_keccak"][
+                kernel + ".whole"],
             "launches_by_variant": {
                 p: {var: path_launches[p][f"{kernel}.{var}"]
                     for var in ("whole", "split")} for p in path_launches},

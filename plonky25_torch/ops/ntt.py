@@ -200,23 +200,31 @@ def _sum_last(x: GL2) -> GL2:
     return x[..., 0]
 
 
-def barycentric_eval_ext(evals: GL, shift: int, z: GL2) -> GL2:
+def barycentric_eval_ext(evals: GL, shift: int, z: GL2,
+                         col_slab: int = None) -> GL2:
     """Evaluate base-field polynomials at an extension point from their
     evaluations on shift*<g_N>:
 
         p(z) = (z^N - s^N) / (N s^N) * sum_i e_i x_i / (z - x_i).
 
     evals: GL (*S, C, N); z: GL2 (*S,), one point per leading index.
-    Returns GL2 (*S, C).  One batched extension inversion."""
-    n = evals.shape[-1]
+    Returns GL2 (*S, C).  One batched extension inversion.  With col_slab,
+    more than 2 * col_slab columns are summed col_slab at a time, the
+    tables shared (the JAX prover's _bary_cols): the (*S, slab, N) GF(p^2)
+    terms are the only temporary that grows with C."""
+    n, c = evals.shape[-1], evals.shape[-2]
     log_n = log2_strict(n)
     xs = coset_points(log_n, shift, evals.device)              # (N,)
-    inv_dens = gl2.inv(gl2.sub_base(z[..., None], xs))         # (*S, N)
-    weights = gl.mul(evals, xs)                                # (*S, C, N)
-    total = _sum_last(gl2.mul_base(inv_dens[..., None, :], weights))
+    inv_dens = gl2.inv(gl2.sub_base(z[..., None], xs))[..., None, :]
     s_n = pow(shift, n, P)
     z_n = gl2.exp_power_of_2(z, log_n)
     front = gl2.mul_base(
         gl2.sub_base(z_n, gl.full((), s_n, evals.device)),
-        gl.full((), Gl.inv(n % P * s_n % P), evals.device))
-    return gl2.mul(front[..., None], total)
+        gl.full((), Gl.inv(n % P * s_n % P), evals.device))[..., None]
+    step = c if not col_slab or c <= 2 * col_slab else col_slab
+    outs = []
+    for i in range(0, c, step):
+        weights = gl.mul(evals[..., i:i + step, :], xs)        # (*S, C', N)
+        outs.append(gl2.mul(front, _sum_last(gl2.mul_base(inv_dens,
+                                                          weights))))
+    return outs[0] if len(outs) == 1 else gl2.concatenate(outs, dim=-1)

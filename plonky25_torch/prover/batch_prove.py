@@ -27,8 +27,9 @@ class BatchProver:
     """Prove batches of traces of one shape."""
 
     def __init__(self, air: Air, log_n: int, fri_config: FriConfig,
-                 device="cuda"):
-        self.base = get_prover(air, log_n, fri_config, device)
+                 device="cuda", quotient_eval_chunks: int = 1):
+        self.base = get_prover(air, log_n, fri_config, device,
+                               quotient_eval_chunks)
 
     def prove(self, traces, on_stage=None) -> List[Proof]:
         """traces: B row-major traces of identical shape -> B proofs, each
@@ -38,7 +39,8 @@ class BatchProver:
 
 
 def prove_batch_on_device(air: Air, traces, fri_config: FriConfig,
-                          device="cuda") -> List[Proof]:
+                          device="cuda",
+                          quotient_eval_chunks: int = 1) -> List[Proof]:
     """Prove B same-shape row-major traces on `device`."""
     return BatchProver(air, log2_strict(len(traces[0])), fri_config,
-                       device).prove(traces)
+                       device, quotient_eval_chunks).prove(traces)

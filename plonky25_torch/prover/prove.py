@@ -4,8 +4,9 @@ plonky25_tpu/prover/prove.py (TpuProver, prove_on_device).
 Proofs are bit-identical to the JAX package's and the int oracle's
 (plonky25_tpu/refimpl/prover.py).  The stages are those of TpuProver:
 
-  * `_commit_trace_fn`: the trace's coset LDE in bit-reversed order, kept
-    as columns (B, W, N), the layout the lane-major Merkle trees take;
+  * `_commit_matrix`: the trace's coset LDE in bit-reversed order, kept
+    as columns (B, W, N), the layout the lane-major Merkle trees take
+    (`_commit_trace_fn` over column chunks);
   * `_stage2_cols`: a multi-stage AIR's stage-2 columns, from the trace and
     the challenges sampled after its commitment (committed like the
     trace);
@@ -28,10 +29,23 @@ the device and cached per prover instance.  The transcript stays on the
 device until the grind's first `found` check, and the proof is assembled
 from one device-to-host copy.
 
-Not ported here: the JAX prover's column chunking, quotient column groups
-and strided quotient segmentation for S > 1, the column slabs of the
-opened-value and reduced-opening stages (memory strategies for 2633-column
-AIRs), `lde_mesh` and `warmup`.
+Wide AIRs (KeccakAir: 2,633 columns) bound their temporaries with the JAX
+prover's four memory strategies, each giving the same proof bytes as the
+one-shot stage (every transform is per column, the field is exact):
+
+  * column chunks of the LDE commits (`commit_col_chunks`);
+  * strided sub-coset segmentation of the quotient (`quotient_eval_chunks`
+    = S): segment c is the coset 7 * g_q^c * <g_M>, M = q / S, evaluated
+    from the trace's coefficients by a weighted fold and one length-M NTT,
+    so the AIR's eval runs S times at (B, M) points and the (W, B, q)
+    locals and nexts are never made;
+  * column groups of that segmentation's transforms (`quotient_col_groups`);
+  * column slabs of the opened values (`_bary_col_slab`) and of the reduced
+    openings (`_ro_col_slab`).
+
+A knob left at None is worked out per call from the batch size and the
+byte budgets below.  Not ported: `lde_mesh` (multi-device) and `warmup`
+(it forces XLA compilation; eager PyTorch compiles nothing ahead).
 """
 
 from __future__ import annotations
@@ -50,7 +64,7 @@ from ..fields.extension import GL2, Ops
 from ..fields.goldilocks import GL
 from ..ops.mmcs import DeviceMerkleTree
 from ..ops.ntt import (_bitrev, barycentric_eval_ext, coset_lde_pair,
-                       coset_lde_to_rev, coset_points, powers)
+                       coset_lde_to_rev, coset_points, intt, ntt, powers)
 from ..ops.poseidon2 import poseidon2_permute_soa
 from ..proof import (
     BatchOpening,
@@ -72,6 +86,24 @@ from .device_challenger import DeviceChallenger
 
 GRIND_WINDOW = 1 << 16
 
+# Byte budgets of the memory strategies, for knobs left at None.  A base
+# value is two int64 limbs (16 bytes), a GF(p^2) value 32.  Derived from
+# scripts/prover_memory.py on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md):
+# on KeccakAir 2^12 x 2,633 every stage's peak grows linearly with
+# B, and a stage's temporaries beyond what it holds are about 7.65 times
+# the base-field output of an NTT-based transform (the LDE commit: 3.29 GB
+# per proof one-shot, 1.31 GB in 4 chunks) and about 5.2 times the GF(p^2)
+# product of a column sum (opened 2.34 GB, reduced openings 4.16 GB
+# one-shot; 0.71, 0.89 GB in 256-column slabs).  Each budget keeps those
+# temporaries near 16 GB, a fifth of the card, so that no stage needs
+# more than the AIR's eval at the batched Keccak shape (B=8, S=4: 19.8 GB);
+# splitting further only adds kernel launches (the JAX prover's 256-column
+# reduced-opening slab, sized for a 15.75 GB TPU, cost a 2^12 Keccak proof
+# 11k more kernels here).
+LDE_CHUNK_BYTES = 2 << 30       # LDE output of one column chunk
+QUOTIENT_GROUP_BYTES = 2 << 30  # coefficients of one column group
+SLAB_BYTES = 3 << 30            # GF(p^2) (B, slab, N) product of one slab
+
 
 def grind_window(fri_config: FriConfig) -> int:
     """PoW witnesses one grind launch tries: 2^(bits + 4), at most
@@ -87,7 +119,8 @@ class TorchProver:
     tables are cached per instance."""
 
     def __init__(self, air: Air, log_n: int, fri_config: FriConfig,
-                 device="cuda"):
+                 device="cuda", quotient_eval_chunks: int = 1,
+                 quotient_col_groups: int = None):
         self.device = resolve_device(device)
         check_multistage_consistency(air)
         self.air = air
@@ -106,7 +139,18 @@ class TorchProver:
         self.g_q = Gl.two_adic_generator(self.q_log_n)
         self.chunk_shifts = [7 * pow(self.g_q, ci, P) % P
                              for ci in range(self.n_chunks)]
+        s = quotient_eval_chunks
+        if s < 1 or s & (s - 1) or s > 1 << self.q_log_n:
+            raise ValueError(f"quotient_eval_chunks={s}: want a power of "
+                             f"two in [1, {1 << self.q_log_n}]")
+        # the memory strategies (module docstring); None: from the budgets
+        self.quotient_eval_chunks = s
+        self.quotient_col_groups = quotient_col_groups
+        self.commit_col_chunks = None
+        self._ro_col_slab = None        # None: from the width; halved
+        self._bary_col_slab = None
         self._selectors = None
+        self._segment_weights = None
         self._ro_xs = None
         self._fold_cache: Dict = {}
 
@@ -133,11 +177,47 @@ class TorchProver:
                 _bitrev(self.log_max, self.device)]
         return self._ro_xs
 
+    def segment_weights(self):
+        """The fold weights of the strided quotient segments, GL (S, h)
+        each: shift_c^j for j in [h], shift_c = 7 * g_q^c for the locals
+        and g_t * 7 * g_q^c for the nexts (the JAX prover's w[c, k, m] =
+        shift_c^(m + kM), one row per segment)."""
+        if self._segment_weights is None:
+            h, s = 1 << self.log_n, self.quotient_eval_chunks
+            shifts = [7 * pow(self.g_q, c, P) % P for c in range(s)]
+            self._segment_weights = tuple(
+                gl.stack([powers(f * sc, h, self.device) for sc in shifts])
+                for f in (1, self.g_t))
+        return self._segment_weights
+
     # ------------------------------------------------------------ stages
     def _commit_trace_fn(self, cols: GL) -> GL:
         """cols (B, W, H) on <g_H> -> the LDE on 7 * <g_N>, bit-reversed,
         as columns (B, W, N)."""
         return coset_lde_to_rev(cols, 1, self.log_max - self.log_n)
+
+    def _commit_matrix(self, cols: GL) -> GL:
+        """_commit_trace_fn in `commit_col_chunks` column chunks, each
+        written into one (B, W, N) output (the JAX prover's :166-177)."""
+        b, w, h = cols.shape
+        n = h << (self.log_max - self.log_n)
+        k = self.commit_col_chunks or _pieces(b * w * n * 16, LDE_CHUNK_BYTES)
+        if k <= 1 or w < 2 * k:
+            return self._commit_trace_fn(cols)
+        return _by_columns(cols, self._commit_trace_fn, n, -(-w // k))
+
+    def _col_groups(self, b: int, w: int) -> int:
+        """Columns per group of the segmented quotient's transforms: the
+        JAX prover's exact-divisor search near G (:284-303), so that every
+        group but a narrower last one has the same width."""
+        g = self.quotient_col_groups or _pieces(
+            b * w * (1 << self.log_n) * 16, QUOTIENT_GROUP_BYTES)
+        if g <= 1 or w < 2 * g:
+            return w
+        for d in range(g, min(2 * g, w) + 1):
+            if w % d == 0:
+                return w // d
+        return -(-w // g)
 
     def _stage2_cols(self, cols: GL, challenges) -> GL:
         """Stage-2 columns (B, s2w, H) from the trace columns (B, W, H) and
@@ -162,7 +242,10 @@ class TorchProver:
         """Constraint fold over the quotient coset divided by Z_H: cols
         (B, W, H), alpha (B,) -> quotient evaluations GL2 (B, q).  A
         multi-stage AIR also passes its stage-2 columns (B, s2w, H) and the
-        challenges, GL2 (B,) each."""
+        challenges, GL2 (B,) each.  With quotient_eval_chunks S > 1 the
+        coset is evaluated in S strided segments (`_quotient_segments`)."""
+        if self.quotient_eval_chunks > 1:
+            return self._quotient_segments(cols, alpha, s2_cols, challenges)
         q_size = 1 << self.q_log_n
         is_first, is_last, is_trans, inv_zh = self.selectors()
 
@@ -179,8 +262,17 @@ class TorchProver:
 
         main = Main(*local_next(cols), (),
                     *(local_next(s2_cols) if self.s2w else ()))
+        acc = self._fold(main, (cols.shape[0], q_size),
+                         (is_first, is_last, is_trans), alpha, challenges)
+        return gl2.mul_base(acc, inv_zh)
+
+    def _fold(self, main: Main, shape, selectors, alpha: GL2,
+              challenges) -> GL2:
+        """The AIR's constraints folded at the points `shape` (B, q'), the
+        selectors GL (q',) at those points."""
+        is_first, is_last, is_trans = selectors
         folder = VerifierConstraintFolder(
-            ops=Ops((cols.shape[0], q_size), self.device),
+            ops=Ops(shape, self.device),
             main=main,
             is_first_row=gl2.from_base(is_first),
             is_last_row=gl2.from_base(is_last),
@@ -190,7 +282,48 @@ class TorchProver:
             challenges=[c[:, None] for c in challenges or []],
         )
         self.air.eval(folder)
-        return gl2.mul_base(folder.accumulator, inv_zh)
+        return folder.accumulator
+
+    def _quotient_segments(self, cols: GL, alpha: GL2, s2_cols: GL,
+                           challenges) -> GL2:
+        """_quotient_fn in S strided sub-coset segments (the JAX prover's
+        chunked branch, :305-404).  Segment c holds the quotient points
+        j = c + S t, the coset 7 * g_q^c * <g_M>, M = q / S.  With the
+        coefficients a of a column, its value there is
+
+            sum_m (sum_k a_(m + kM) shift_c^(m + kM)) g_M^(m t),
+
+        a weighted fold over k then one plain length-M NTT (`_segment`);
+        the nexts take shift g_t * shift_c.  The coefficient transform and
+        the folds run in column groups (`_col_groups`), and the AIR's eval
+        runs once per segment at (B, M) points: its temporaries shrink by
+        S, its kernel launches grow by S."""
+        s = self.quotient_eval_chunks
+        b = cols.shape[0]
+        q_size = 1 << self.q_log_n
+        m = q_size // s
+        w_loc, w_nxt = self.segment_weights()
+        *sel, inv_zh = self.selectors()
+        step = self._col_groups(b, self.width)
+        coeffs = _by_columns(cols, intt, cols.shape[-1], step)
+        s2_coeffs = intt(s2_cols) if self.s2w else None
+        dev = self.device
+        out = GL2(*(GL(torch.empty((b, q_size), dtype=torch.int64, device=dev),
+                       torch.empty((b, q_size), dtype=torch.int64, device=dev))
+                    for _ in range(2)))
+        for c in range(s):
+            vecs = [_ext_columns_first(_by_columns(
+                coeffs, lambda x, w=w: _segment(x, w, m), m, step))
+                for w in (w_loc[c], w_nxt[c])]
+            if self.s2w:
+                vecs += [_ext_columns_first(_segment(s2_coeffs, w, m))
+                         for w in (w_loc[c], w_nxt[c])]
+            acc = self._fold(Main(vecs[0], vecs[1], (), *vecs[2:]), (b, m),
+                             [x[c::s] for x in sel], alpha, challenges)
+            # out[c + S t] = acc[t]
+            tree_map(lambda d, v: d[:, c::s].copy_(v), out,
+                     gl2.mul_base(acc, inv_zh[c::s]))
+        return out
 
     def _commit_chunks_fn(self, q_evals: GL2) -> GL:
         """Split the quotient evaluations (B, q) into chunks and LDE each as
@@ -236,8 +369,13 @@ class TorchProver:
         quotient chunks at zeta (B, n_chunks, D), and for a multi-stage AIR
         the stage-2 columns at zeta and zeta * g (B, s2w)."""
         zeta_next = gl2.mul_base(zeta, gl.full((), self.g_t, self.device))
-        tl = barycentric_eval_ext(cols, 1, zeta)
-        tn = barycentric_eval_ext(cols, 1, zeta_next)
+        b, h = cols.shape[0], cols.shape[-1]
+        slab = self._bary_col_slab or max(8, SLAB_BYTES // (b * h * 32))
+
+        def bary(m: GL, z: GL2) -> GL2:
+            return barycentric_eval_ext(m, 1, z, col_slab=slab)
+
+        tl, tn = bary(cols, zeta), bary(cols, zeta_next)
         qc = []
         for ci in range(self.n_chunks):
             ev = q_evals[..., ci::self.n_chunks]
@@ -245,8 +383,7 @@ class TorchProver:
                                            self.chunk_shifts[ci], zeta))
         out = (tl, tn, gl2.stack(qc, dim=-2))
         if self.s2w:
-            out += (barycentric_eval_ext(s2_cols, 1, zeta),
-                    barycentric_eval_ext(s2_cols, 1, zeta_next))
+            out += (bary(s2_cols, zeta), bary(s2_cols, zeta_next))
         return out
 
     def _ro_fn(self, trace_lde: GL, q_lde: GL, tl: GL2, tn: GL2, qc: GL2,
@@ -268,13 +405,32 @@ class TorchProver:
             groups += [(s2_lde, s2l, zeta, 2 * w),
                        (s2_lde, s2n, zeta_next, 2 * w + s2w)]
         groups.append((q_lde, qc_flat, zeta, 2 * w + 2 * s2w))
+        b, n = trace_lde.shape[0], xs.shape[0]
+
+        def col_sum(p_at_x: GL, p_at_z: GL2, coef: GL2) -> GL2:
+            """sum_c coef_c (p_c(x) - p_c(z)) over the columns (B, C, N),
+            in column slabs (the JAX prover's _col_sum, :592-618): the
+            width starts at _ro_col_slab (C when None) and halves while a
+            slab's (B, slab, N) product exceeds SLAB_BYTES; only that
+            product is live."""
+            c = p_at_x.shape[-2]
+            slab = self._ro_col_slab or c
+            while b * n * slab * 32 > SLAB_BYTES and slab > 32:
+                slab //= 2
+            step = c if c <= 2 * slab else slab
+            acc = None
+            for i in range(0, c, step):
+                num = gl2.add_base(gl2.neg(p_at_z[..., i:i + step])[..., None],
+                                   p_at_x[..., i:i + step, :])
+                part = gl2.sum_dim(gl2.mul(coef[..., i:i + step, None], num),
+                                   -2)
+                acc = part if acc is None else gl2.add(acc, part)
+            return acc
+
         sums, dens = [], []
         for p_at_x, p_at_z, z, k0 in groups:
             c = p_at_x.shape[-2]
-            coef = pow_stack[..., k0:k0 + c, None]            # (B, C, 1)
-            num = gl2.add_base(gl2.neg(p_at_z)[..., None], p_at_x)
-            weighted = gl2.mul(coef, num)                     # (B, C, N)
-            acc = gl2.sum_dim(weighted, -2)
+            acc = col_sum(p_at_x, p_at_z, pow_stack[..., k0:k0 + c])
             sums.append(acc)
             dens.append(gl2.broadcast_to(
                 gl2.add_base(gl2.neg(z)[..., None], xs), acc.shape))
@@ -325,7 +481,7 @@ class TorchProver:
                              f"{self.width}, {1 << self.log_n})")
         ch = DeviceChallenger((b,), self.device)
 
-        trace_lde = self._commit_trace_fn(cols)                # (B, W, N)
+        trace_lde = self._commit_matrix(cols)                  # (B, W, N)
         trace_tree = DeviceMerkleTree(trace_lde)
         ch.observe_many(trace_tree.root)
         mark("commit_trace")
@@ -336,7 +492,7 @@ class TorchProver:
         s2_cols = s2_lde = s2_tree = None
         if self.s2w:
             s2_cols = self._stage2_cols(cols, challenges)      # (B, s2w, H)
-            s2_lde = self._commit_trace_fn(s2_cols)            # (B, s2w, N)
+            s2_lde = self._commit_matrix(s2_cols)              # (B, s2w, N)
             s2_tree = DeviceMerkleTree(s2_lde)
             ch.observe_many(s2_tree.root)
             mark("stage2")
@@ -484,6 +640,44 @@ class TorchProver:
         )
 
 
+def _pieces(nbytes: int, budget: int) -> int:
+    """How many pieces keep each below `budget` bytes."""
+    return -(-nbytes // budget)
+
+
+def _by_columns(x: GL, fn, n_out: int, step: int) -> GL:
+    """fn over the column ranges [i, i + step) of x (B, W, n), each result
+    (B, w', n_out) written into one (B, W, n_out) output: fn's temporaries
+    are those of `step` columns.  fn(x) itself when one range covers W."""
+    b, w = x.shape[:2]
+    if step >= w:
+        return fn(x)
+    out = GL(*(torch.empty((b, w, n_out), dtype=torch.int64, device=x.device)
+               for _ in range(2)))
+    for i in range(0, w, step):
+        tree_map(lambda d, v: d[:, i:i + step].copy_(v), out,
+                 fn(x[:, i:i + step]))
+    return out
+
+
+def _segment(coeffs: GL, w: GL, m: int) -> GL:
+    """The polynomials with coefficients (..., h) at shift * g_M^t for t in
+    [M]: w holds shift^j (h,); the weighted coefficients are folded to
+    length M (summed over k at m + kM, or zero-padded when h < M), then
+    one plain NTT."""
+    x = gl.mul(coeffs, w)
+    h = x.shape[-1]
+    if h > m:
+        parts = x.reshape(*x.shape[:-1], h // m, m)
+        x = parts[..., 0, :]
+        for k in range(1, h // m):
+            x = gl.add(x, parts[..., k, :])
+    elif h < m:
+        x = gl.concatenate([x, gl.zeros(x.shape[:-1] + (m - h,), x.device)],
+                           dim=-1)
+    return ntt(x)
+
+
 def _ext_columns_first(x: GL) -> GL2:
     """Base columns (B, W, q) as the GF(p^2) view (W, B, q): c0 the columns
     moved axis-first (no copy), c1 a zero broadcast to that shape."""
@@ -555,18 +749,21 @@ def trace_columns(traces, device) -> GL:
 _prover_cache: Dict = {}
 
 
-def get_prover(air: Air, log_n: int, fri_config: FriConfig,
-               device="cuda") -> TorchProver:
-    """A cached TorchProver for (AIR class, shape, FRI config, device); a
-    cache hit takes the caller's `air` (its publics)."""
+def get_prover(air: Air, log_n: int, fri_config: FriConfig, device="cuda",
+               quotient_eval_chunks: int = 1,
+               quotient_col_groups: int = None) -> TorchProver:
+    """A cached TorchProver for (AIR class, shape, FRI config, device,
+    memory knobs); a cache hit takes the caller's `air` (its publics)."""
     device = resolve_device(device)
     key = (type(air).__module__, type(air).__qualname__, air.name(),
            air.width(), air.stage2_width(), air.num_challenges(), log_n,
            fri_config.log_blowup, fri_config.num_queries,
-           fri_config.proof_of_work_bits, str(device))
+           fri_config.proof_of_work_bits, str(device), quotient_eval_chunks,
+           quotient_col_groups)
     p = _prover_cache.get(key)
     if p is None:
-        p = TorchProver(air, log_n, fri_config, device)
+        p = TorchProver(air, log_n, fri_config, device, quotient_eval_chunks,
+                        quotient_col_groups)
         _prover_cache[key] = p
     else:
         p.air = air

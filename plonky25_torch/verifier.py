@@ -71,7 +71,8 @@ class TorchVerifier:
     """Shape-specialized verifier; build once per (air, P3Config, device).
 
     Verifies single- and multi-stage AIRs over GF(p^2), the reference's
-    proof family; D=3 proofs are a later slice of the port.  A multi-stage
+    proof family; a D=3 proof is refused with NotImplementedError, as the
+    JAX TpuVerifier refuses it (tests/test_d3.py:105-110).  A multi-stage
     AIR commits a second, challenge-dependent matrix between the trace and
     quotient commitments (air.py): the transcript samples its challenges
     after the trace commitment, and the stage-2 matrix is one more batch,
