@@ -80,10 +80,10 @@ Phases, one line each; any failure exits non-zero:
                 prover's); first and steady latency, keccak-f/s, stage ms,
                 launches, device time and busy share, peak memory;
   [verify-keccak]  `verify_proof` of that proof: launches (659 sponge
-                chunks per trace leaf), latency median of 5, device time;
+                chunks per trace leaf), latency median of 5;
   [batch-keccak]  `BatchVerifier` at B=256 copies of that proof x Q=100,
                 four lanes tampered: exact verdicts, queries/s, stage ms,
-                peak memory, device time;
+                peak memory;
   [prove-keccak-chunked]  that 2^12 x 2,633 trace proved with every memory
                 strategy of the prover at once (S=4 quotient segments, 4
                 column groups, 4 LDE column chunks, both column slabs at
@@ -97,16 +97,36 @@ Phases, one line each; any failure exits non-zero:
                 single proof of its trace, all 8 accepted by one
                 `BatchVerifier` call beside a tampered copy, which is
                 rejected; first and steady latency (median of 2),
-                keccak-f/s, stage ms, launches by variant, device time and
-                busy share, peak memory;
+                keccak-f/s, stage ms, launches by variant, peak memory
+                (these three Keccak phases are not profiled: UNPROFILED);
   [gl3]         GF(p^3) mul, inv and div (fields/extension3.py) on the card
                 against the int Gl3 on a seeded sample;
+  [attest-golden]  `attest` of the fib(64) fixture proof at FriConfig(1,
+                100, 16): the sample-recording verification, the 13,477-row
+                schedule, the gammas (5 sponge chains of 15,104 steps), the
+                trace and the 2^14 x 620 VerifierAir STARK; the bundle
+                byte-equal to artifacts/attestation_fibonacci.json (made by
+                the JAX package); ms and launches by variant per step, each
+                held to its shape; peak memory, device time and busy share;
+  [check-golden]  `check_attestation` of that committed bundle with the
+                port's verifier: accepted; a flipped sample, the statement
+                stripped, gamma + 1, a changed opening of the STARK and
+                num_queries = 0 refused;
+  [attest-small]  `attest` and `attest_many` of
+                artifacts/attestation_small.json's proofs: byte-equal to
+                its `bundle` and `multi`, both accepted;
+  [attest-many]  `attest_many` of 4 copies of the golden proof (batched
+                sample recording, 53,908 rows, a 2^16 x 620 STARK): every
+                proof's samples the golden bundle's, `check_attestations`
+                accepts, one proof's flipped sample refused; the same
+                measurements;
   [timing]      each kernel at each path's state counts against its bound
                 and its plain version; both kernels, each variant, at
                 N = 1, 2,048, 32,768 and 2^21 and across the crossover
                 (CUDA events, and the kernel's device time alone);
-then the kernel table line {"kernels": [...]} and the last line
-{"ok": true, "device": {...}}.  Every path is driven with the launch
+then the kernel table line {"kernels": [...]} (launches and times of
+MAIN_PATH, attest_golden, with every path's beside them) and the last
+line {"ok": true, "device": {...}}.  Every path is driven with the launch
 counts set to 0 just before it and read just after, and the counts are held
 to the numbers the path's shape gives, by variant too.
 
@@ -136,6 +156,8 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import plonky25_torch.attest as attest_mod  # noqa: E402
+import plonky25_torch.attest_program as attp  # noqa: E402
 from plonky25_torch.challenger import SymbolicChallenger  # noqa: E402
 from plonky25_torch.constants import EXT_DEGREE, RATE  # noqa: E402
 from plonky25_torch.fields import gl  # noqa: E402
@@ -147,6 +169,7 @@ from plonky25_torch.models import (  # noqa: E402
     keccak_trace_np,
 )
 from plonky25_torch.models.fibonacci import fibonacci_trace  # noqa: E402
+from plonky25_torch.models.verifier_air import VerifierAir  # noqa: E402
 from plonky25_torch.ops import keccak as keccak_ops  # noqa: E402
 from plonky25_torch.ops import build  # noqa: E402
 from plonky25_torch.ops import poseidon2 as p2  # noqa: E402
@@ -160,6 +183,7 @@ from plonky25_torch.proof import (  # noqa: E402
     P3Config,
     derive_config,
     load_proof,
+    proof_from_json,
     proof_to_json,
 )
 from plonky25_torch.fields import gl3  # noqa: E402
@@ -183,6 +207,15 @@ B_KECCAK = 256
 B_KECCAK_PROVE = 8      # BASELINE.md config 4's batch (bench.py:146-154)
 S_KECCAK = 4            # its quotient_eval_chunks
 TAMPERED = ("pow", "merkle_sibling", "fold_sibling", "final_poly")
+B_ATTEST = 4            # attest_many of the golden proof: 53,908 rows, 2^16
+MAIN_PATH = "attest_golden"   # the kernel line's launches and times
+# [verify-keccak], [batch-keccak] and [batch-prove-keccak] run without their
+# profiled run (profiling costs about 0.23 ms per kernel,
+# scripts/profiler_cost.py), which keeps the script well inside its time
+# limit beside the attestation phases; PERF.md keeps their earlier device
+# times
+UNPROFILED = "device time not profiled in this phase (PERF.md)"
+ARTIFACTS = os.path.join(ROOT, "artifacts")
 AOS, SOA = "poseidon2_permute_w12", "poseidon2_permute_soa"
 # H100 SXM rates (NVIDIA data sheet; CUDA C Programming Guide throughput
 # table for compute capability 9.0): HBM bytes/s, and per SM per clock
@@ -564,14 +597,20 @@ def compact(proof):
     return json.dumps(proof_to_json(proof), separators=(",", ":"))
 
 
-def profile_device_time(fn):
+def profile_device_time(fn, cpu=False):
     """(device ms, kernel count, {name: (ms, count)}) of one run of fn,
-    from torch.profiler; None where the profiler saw no CUDA kernels."""
+    from torch.profiler; None where the profiler saw no CUDA kernels.  A
+    path's run traces CUDA activity alone: on a run of 323k kernels that
+    gave the device time and kernel count of tracing CPU and CUDA activity
+    in about half the time (scripts/profiler_cost.py, PERF.md).  `cpu`
+    traces both, as kernel_device_ms does (the per-kernel timings keep
+    their earlier method).  Either way a profile has missed the kernels of
+    five 2^21-state launches; the timings then say "not measured"."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts, acc_events=True) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = {}
@@ -592,7 +631,7 @@ def kernel_device_ms(fn, reps):
     calls, it leaves out the host time of the wrapper, which bounds the
     event time of a small launch.  None where the profiler saw no kernel."""
     fn()
-    prof = profile_device_time(lambda: [fn() for _ in range(reps)])
+    prof = profile_device_time(lambda: [fn() for _ in range(reps)], cpu=True)
     mine = [(t, c) for name, (t, c) in (prof[2].items() if prof else ())
             if "poseidon2" in name]
     return sum(t for t, _ in mine) / sum(c for _, c in mine) if mine else None
@@ -733,6 +772,382 @@ def keccak_traces(inputs, b):
     return np.stack(out)
 
 
+
+# ------------------------------------------------------------ attestation
+
+class StepClock:
+    """The attestation entry points' on_step hook: wall ms (the device
+    synchronised at each step's end) and kernel launches, by variant, of
+    each step since the previous one."""
+
+    def __init__(self):
+        self.steps = {}
+        self.start()
+
+    def start(self):
+        """Restart the clock and the counts (call it where the counts were
+        set to 0: inside `counted`); returns the hook."""
+        torch.cuda.synchronize()
+        self.t, self.last = time.perf_counter(), self._counts()
+        return self
+
+    @staticmethod
+    def _counts():
+        return {k + suf: getattr(w, "launches" + suf.replace(".", "_"))
+                for k, w in WRAPPERS.items()
+                for suf in ("", ".split", ".whole")}
+
+    def __call__(self, name):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), self._counts()
+        self.steps[name] = {
+            "ms": (now - self.t) * 1e3,
+            "launches": {k: counts[k] - self.last[k] for k in counts}}
+        self.t, self.last = now, counts
+
+    def text(self):
+        return ", ".join(
+            f"{k} {v['ms']:.1f} ms ({v['launches'][AOS]}/"
+            f"{v['launches'][SOA]})" for k, v in self.steps.items())
+
+
+def chain_groups(rows):
+    """attest_program.build_trace_cols's chains: rows grouped from each
+    chain start ('l', 'f', 'g'), split into its round A ('l' starts) and
+    round B ('f' and 'g' starts)."""
+    chains = []
+    for i, r in enumerate(rows):
+        if r.sel in ("l", "f", "g"):
+            chains.append([i])
+        elif r.sel in ("t", "c", "w"):
+            chains[-1].append(i)
+    return ([c for c in chains if rows[c[0]].sel == "l"],
+            [c for c in chains if rows[c[0]].sel in ("f", "g")])
+
+
+def trace_shapes(rows):
+    """{states: launches} of the state-major kernel in build_trace_cols:
+    one launch per chain level of each round, over the chains longer than
+    the level (a depth-1 schedule has no 'w' runs)."""
+    check(not any(r.sel == "w" for r in rows), "schedule has 'w' rows")
+    shapes = Counter()
+    for group in chain_groups(rows):
+        for k in range(max((len(c) for c in group), default=0)):
+            shapes[sum(1 for c in group if len(c) > k)] += 1
+    return shapes
+
+
+def gamma_shapes(rows):
+    """{states: launches} of derive_gammas: the zero state of the
+    GAMMA_LANES chains, one launch per step of the padded lanes, and the
+    one-state combine."""
+    n_pairs = len(attp.sequence_pairs(rows))
+    steps = attp.padded_pair_count(n_pairs) // attp.GAMMA_LANES
+    return Counter({attp.GAMMA_LANES: steps + 1, 1: 1})
+
+
+def add_shapes(*parts):
+    """Sum of {kernel: {states: launches}} shapes."""
+    out = {AOS: Counter(), SOA: Counter()}
+    for part in parts:
+        for k in (AOS, SOA):
+            out[k].update(part.get(k, {}))
+    return {k: dict(v) for k, v in out.items()}
+
+
+def att_verifier_shapes(log_n, att_fc, b=1):
+    """The state-major shapes of verifying b VerifierAir STARKs of 2^log_n
+    rows (one launch per sponge chunk of the 620-column leaf)."""
+    v = get_verifier(VerifierAir(), shape_config(VerifierAir(), log_n, att_fc),
+                     DEVICE)
+    return verify_path_shapes(v, b)
+
+
+def attest_step_shapes(targets, rows, att_fc, windows, b_record):
+    """{step: {kernel: {states: launches}}} of attest / attest_many:
+    record (the port's verifier over each same-shape group of the target
+    proofs, `targets` as (P3Config, count) pairs; b_record proofs per
+    BatchVerifier pass), gammas, trace and prove (the attestation STARK's
+    transcript and trees at its height, `windows` grind windows)."""
+    rec = []
+    for cfg, n in targets:
+        v = get_verifier(FibonacciAir(), cfg, DEVICE)
+        rec.append({AOS: verify_path_shapes(v, n)})
+    log_n = max(len(rows) - 1, 3).bit_length()
+    return {"record": add_shapes(*rec),
+            "gammas": {AOS: dict(gamma_shapes(rows)), SOA: {}},
+            "trace": {AOS: dict(trace_shapes(rows)), SOA: {}},
+            "prove": prove_path_shapes(log_n, att_fc, VerifierAir(), 1,
+                                       windows)}
+
+
+def check_steps(path, clock, step_shapes, split_max):
+    """Each step's launches equal its shape's, in all and by variant."""
+    for step, shapes in step_shapes.items():
+        check_launches(f"{path} {step}", clock.steps[step]["launches"],
+                       shapes, split_max)
+
+
+def check_shapes(rows, log_n, att_fc):
+    """State-major shapes of check_attestation(s) past its structural
+    gate: the gammas, then the STARK's verification."""
+    return add_shapes({AOS: gamma_shapes(rows)},
+                      {AOS: att_verifier_shapes(log_n, att_fc)})
+
+
+def golden_rows(proof, fc, samples, copies=1):
+    """The golden proof's schedule from its bundle's samples, `copies`
+    times over (attest_many of as many copies)."""
+    cfg = derive_config(proof, fc)
+    return [r for _ in range(copies) for r in
+            attp.build_verification_schedule(proof, cfg, FibonacciAir(),
+                                             samples)]
+
+
+def bundle_text(bundle):
+    return json.dumps(attest_mod.bundle_to_json(bundle))
+
+
+def attestation_inputs(proof, fc, golden_file="attestation_fibonacci.json",
+                       copies=B_ATTEST):
+    """What the attestation phases take: the golden bundle (its text and
+    object), its schedule (from its samples) and `copies` copies of it,
+    the small artifact, the STARK heights, and every state count the
+    phases launch (prove_shapes per STARK, aos_sizes)."""
+    with open(os.path.join(ARTIFACTS, golden_file)) as f:
+        golden_text = f.read()
+    golden = attest_mod.bundle_from_json(json.loads(golden_text))
+    att_fc = golden.att_fri_config
+    rows_g = golden_rows(proof, fc, golden.samples)
+    rows_m = golden_rows(proof, fc, golden.samples, copies)
+    with open(os.path.join(ARTIFACTS, "attestation_small.json")) as f:
+        small = json.load(f)
+    small_fc, small_att = (FriConfig(**small[k]) for k in ("fc", "att_fc"))
+    logs = {"golden": max(len(rows_g) - 1, 3).bit_length(),
+            "many": max(len(rows_m) - 1, 3).bit_length()}
+    prove_shapes = ([prove_path_shapes(n, att_fc, VerifierAir(), 1, 1)
+                     for n in logs.values()]
+                    + [prove_path_shapes(n, small_att, VerifierAir(), 1, 1)
+                       for n in (8, 9)])
+    aos_sizes = set().union(*(
+        set(gamma_shapes(r)) | set(trace_shapes(r)) for r in (rows_g, rows_m)),
+        *(att_verifier_shapes(n, att_fc) for n in logs.values()))
+    return {"golden_text": golden_text, "golden": golden, "att_fc": att_fc,
+            "rows_g": rows_g, "rows_m": rows_m, "copies": copies,
+            "small": small, "small_fc": small_fc, "small_att": small_att,
+            "logs": logs, "prove_shapes": prove_shapes,
+            "aos_sizes": aos_sizes}
+
+
+def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
+                       path_shapes, report, lap):
+    """[attest-golden], [check-golden], [attest-small], [attest-many]."""
+    golden_text, golden, att_fc = (att[k] for k in
+                                   ("golden_text", "golden", "att_fc"))
+    rows_g, rows_m, att_logs = att["rows_g"], att["rows_m"], att["logs"]
+    small, small_fc, small_att = (att[k] for k in
+                                  ("small", "small_fc", "small_att"))
+    copies = att["copies"]
+    # ---- attest the golden fib(64) proof: the committed bundle, byte for
+    # byte (made by the JAX package's device prover)
+    fib = FibonacciAir()
+    clock = StepClock()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle_g, path_launches["attest_golden"] = counted(
+        lambda: attest_mod.attest(proof, fib, fc, att_fri_config=att_fc,
+                                  device=DEVICE, on_step=clock.start()))
+    ag_ms = (time.perf_counter() - t0) * 1e3
+    ag_peak = torch.cuda.max_memory_allocated() / 1e9
+    check(bundle_text(bundle_g) == golden_text, "attest-golden: the bundle "
+          "differs from artifacts/attestation_fibonacci.json")
+    ag_windows = (bundle_g.stark.opening_proof.fri_proof.pow_witness
+                  // grind_window(att_fc) + 1)
+    ag_steps = attest_step_shapes([(cfg, 1)], rows_g, att_fc, ag_windows, 1)
+    check_steps("attest_golden", clock, ag_steps, split_max)
+    path_shapes["attest_golden"] = add_shapes(*ag_steps.values())
+    check_launches("attest_golden", path_launches["attest_golden"],
+                   path_shapes["attest_golden"], split_max)
+    dev_ag, prof_ag = device_summary(profile_device_time(
+        lambda: attest_mod.attest(proof, fib, fc, att_fri_config=att_fc,
+                                  device=DEVICE)), ag_ms)
+    la = path_launches["attest_golden"]
+    print(f"[attest-golden] attest(fib(64) fixture proof, FibonacciAir(), "
+          f"FriConfig(1, 100, 16)): {bundle_g.n_rows} rows, a 2^"
+          f"{bundle_g.stark.degree_bits} x {VerifierAir().width()} VerifierAir "
+          f"STARK; bundle byte-equal to artifacts/attestation_fibonacci.json "
+          f"({len(golden_text)} bytes); {ag_ms:.1f} ms, steps (ms, launches "
+          f"{AOS}/{SOA}): {clock.text()}; launches {AOS} {la[AOS]} "
+          f"({la[AOS + '.split']} split), {SOA} {la[SOA]} ({la[SOA + '.split']}"
+          f" split; {ag_windows} grind windows), as each step's shape gives; "
+          f"peak {ag_peak:.2f} GB; {dev_ag}")
+    report["attest_golden"] = {
+        "n_rows": bundle_g.n_rows, "ms": ag_ms, "steps": clock.steps,
+        "launches": la, "peak_allocated_gb": ag_peak, "windows": ag_windows,
+        "profile": prof_ag}
+
+    lap("attest-golden")
+    # ---- check the committed golden bundle, and five tampers of it
+    t0 = time.perf_counter()
+    ok, path_launches["check_golden"] = counted(
+        lambda: attest_mod.check_attestation(golden, proof, fib, fc,
+                                             att_fri_config=att_fc,
+                                             device=DEVICE))
+    cg_ms = (time.perf_counter() - t0) * 1e3
+    check(ok, "check-golden: the committed bundle was refused")
+    path_shapes["check_golden"] = check_shapes(rows_g, att_logs["golden"],
+                                               att_fc)
+    check_launches("check_golden", path_launches["check_golden"],
+                   path_shapes["check_golden"], split_max)
+    dev_cg, prof_cg = device_summary(profile_device_time(
+        lambda: attest_mod.check_attestation(golden, proof, fib, fc,
+                                             att_fri_config=att_fc,
+                                             device=DEVICE)), cg_ms)
+
+    def golden_tamper(kind):
+        b = copy.deepcopy(golden)
+        if kind == "sample":
+            b.samples[7] = (b.samples[7] + 1) % P
+        elif kind == "statement":
+            b.statement = None
+        elif kind == "gamma":
+            b.gamma = ((b.gamma[0] + 1) % P, b.gamma[1])
+        elif kind == "stark_opening":
+            tl = b.stark.opened_values.trace_local
+            tl[100] = ((tl[100][0] + 1) % P, tl[100][1])
+        elif kind == "num_queries":
+            b.att_fri_config = FriConfig(att_fc.log_blowup, 0,
+                                         att_fc.proof_of_work_bits)
+        return b
+
+    tamper_ms = {}
+    for kind in ("sample", "statement", "gamma", "stark_opening",
+                 "num_queries"):
+        b = golden_tamper(kind)
+        t0 = time.perf_counter()
+        check(not attest_mod.check_attestation(b, proof, fib, fc,
+                                               att_fri_config=att_fc,
+                                               device=DEVICE),
+              f"check-golden: the {kind} tamper was accepted")
+        tamper_ms[kind] = (time.perf_counter() - t0) * 1e3
+    lc = path_launches["check_golden"]
+    print(f"[check-golden] check_attestation of the committed bundle with the "
+          f"port's verifier on the card: accepted in {cg_ms:.1f} ms, launches "
+          f"{AOS} {lc[AOS]} ({lc[AOS + '.split']} split) as the shape gives, "
+          f"{SOA} {lc[SOA]}; {dev_cg}; refused: "
+          + ", ".join(f"{k} ({t:.1f} ms)" for k, t in tamper_ms.items()))
+    report["check_golden"] = {"ms": cg_ms, "launches": lc,
+                              "tamper_ms": tamper_ms, "profile": prof_cg}
+
+    lap("check-golden")
+    # ---- the small artifact: attest and attest_many, byte for byte
+    sp = [proof_from_json(x) for x in small["proofs"]]
+    clock = StepClock()
+    sb, path_launches["attest_small"] = counted(lambda: attest_mod.attest(
+        sp[0], fib, small_fc, att_fri_config=small_att, device=DEVICE,
+        on_step=clock.start()))
+    check(bundle_text(sb) == json.dumps(small["bundle"]),
+          "attest-small: the bundle differs from the artifact's")
+    sms_steps = attest_step_shapes(
+        [(derive_config(sp[0], small_fc), 1)],
+        attp.build_verification_schedule(
+            sp[0], derive_config(sp[0], small_fc), fib, sb.samples),
+        small_att, sb.stark.opening_proof.fri_proof.pow_witness
+        // grind_window(small_att) + 1, 1)
+    check_steps("attest_small", clock, sms_steps, split_max)
+    path_shapes["attest_small"] = add_shapes(*sms_steps.values())
+    check_launches("attest_small", path_launches["attest_small"],
+                   path_shapes["attest_small"], split_max)
+    small_steps = clock.text()
+    t0 = time.perf_counter()
+    sm = attest_mod.attest_many(sp, fib, small_fc, att_fri_config=small_att,
+                                device=DEVICE)
+    sm_ms = (time.perf_counter() - t0) * 1e3
+    check(bundle_text(sm) == json.dumps(small["multi"]),
+          "attest-small: the attest_many bundle differs from the artifact's")
+    check(attest_mod.check_attestation(sb, sp[0], fib, small_fc,
+                                       att_fri_config=small_att,
+                                       device=DEVICE)
+          and attest_mod.check_attestations(sm, sp, fib, small_fc,
+                                            att_fri_config=small_att,
+                                            device=DEVICE),
+          "attest-small: a small bundle was refused")
+    print(f"[attest-small] artifacts/attestation_small.json: attest of fib(8) "
+          f"({sb.n_rows} rows, 2^{sb.stark.degree_bits}) and attest_many of "
+          f"fib(8) + fib(16) ({sm.n_rows} rows, 2^{sm.stark.degree_bits}) "
+          f"byte-equal to its bundle and multi, both accepted; attest steps: "
+          f"{small_steps}; attest_many {sm_ms:.1f} ms")
+    report["attest_small"] = {"launches": path_launches["attest_small"],
+                              "steps": clock.steps, "many_ms": sm_ms}
+
+    lap("attest-small")
+    # ---- attest_many of `copies` copies of the golden proof
+    clock = StepClock()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mb, path_launches["attest_many"] = counted(
+        lambda: attest_mod.attest_many([proof] * copies, fib, fc,
+                                       att_fri_config=att_fc, device=DEVICE,
+                                       on_step=clock.start()))
+    am_ms = (time.perf_counter() - t0) * 1e3
+    am_peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(smp == golden.samples for smp in mb.samples)
+          and len(mb.samples) == copies,
+          "attest-many: recorded samples differ from the golden bundle's")
+    check(mb.n_rows == len(rows_m) and mb.stark.degree_bits == att_logs["many"],
+          f"attest-many: {mb.n_rows} rows, 2^{mb.stark.degree_bits}")
+    am_windows = (mb.stark.opening_proof.fri_proof.pow_witness
+                  // grind_window(att_fc) + 1)
+    am_steps = attest_step_shapes([(cfg, copies)], rows_m, att_fc,
+                                  am_windows, copies)
+    check_steps("attest_many", clock, am_steps, split_max)
+    path_shapes["attest_many"] = add_shapes(*am_steps.values())
+    check_launches("attest_many", path_launches["attest_many"],
+                   path_shapes["attest_many"], split_max)
+    am_step_text = clock.text()
+    t0 = time.perf_counter()
+    ok, path_launches["check_many"] = counted(
+        lambda: attest_mod.check_attestations(mb, [proof] * copies, fib, fc,
+                                              att_fri_config=att_fc,
+                                              device=DEVICE))
+    cm_ms = (time.perf_counter() - t0) * 1e3
+    check(ok, "attest-many: check_attestations refused the bundle")
+    path_shapes["check_many"] = check_shapes(rows_m, att_logs["many"], att_fc)
+    check_launches("check_many", path_launches["check_many"],
+                   path_shapes["check_many"], split_max)
+    flipped = copy.deepcopy(mb)
+    flipped.samples[copies // 2][11] = (flipped.samples[copies // 2][11]
+                                        + 1) % P
+    check(not attest_mod.check_attestations(flipped, [proof] * copies, fib,
+                                            fc, att_fri_config=att_fc,
+                                            device=DEVICE),
+          f"attest-many: a flipped sample of proof {copies // 2} was "
+          f"accepted")
+    dev_am, prof_am = device_summary(profile_device_time(
+        lambda: attest_mod.attest_many([proof] * copies, fib, fc,
+                                       att_fri_config=att_fc,
+                                       device=DEVICE)), am_ms)
+    lm = path_launches["attest_many"]
+    print(f"[attest-many] attest_many of {copies} copies of the golden proof: "
+          f"the batched recording gave each the golden bundle's "
+          f"{len(golden.samples)} samples; {mb.n_rows} rows, a 2^"
+          f"{mb.stark.degree_bits} x {VerifierAir().width()} STARK; "
+          f"{am_ms:.1f} ms, steps (ms, launches {AOS}/{SOA}): {am_step_text}; "
+          f"launches {AOS} {lm[AOS]}, {SOA} {lm[SOA]} ({lm[SOA + '.split']} "
+          f"split), as each step's shape gives; peak {am_peak:.2f} GB; "
+          f"{dev_am}; check_attestations accepted in {cm_ms:.1f} ms "
+          f"({path_launches['check_many'][AOS]} launches), one proof's "
+          f"flipped sample refused")
+    report["attest_many"] = {
+        "B": copies, "n_rows": mb.n_rows, "ms": am_ms, "steps": clock.steps,
+        "launches": lm, "peak_allocated_gb": am_peak, "check_ms": cm_ms,
+        "check_launches": path_launches["check_many"], "profile": prof_am}
+    del mb, flipped
+    torch.cuda.empty_cache()
+
+    lap("attest-many")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="write the measurements here as JSON")
@@ -858,6 +1273,10 @@ def main(argv=None):
     prove_sizes = {k: sorted(set().union(*(
         prove_path_shapes(log_n, fc, a, b, 1)[k] for a, log_n, b in prove_runs)))
         for k in (AOS, SOA)}
+    # the attestation paths' inputs, and every state count they launch
+    att = attestation_inputs(proof, fc)
+    prove_sizes = {k: sorted(set(prove_sizes[k]).union(
+        *(a[k] for a in att["prove_shapes"]))) for k in (AOS, SOA)}
 
     # ---- state-major kernel against its plain version
     err_aos = 0
@@ -881,7 +1300,7 @@ def main(argv=None):
                                       "verify_keccak",
                                       "verify_batch_keccak",
                                       "verify_batch_prove_keccak")))
-        | set(prove_sizes[AOS]))
+        | set(prove_sizes[AOS]) | att["aos_sizes"])
     for n in verify_sizes:
         err_aos = max(err_aos, aos_vs_plain(random_states(n, 7 * n + 1)))
     check(err_aos == 0, f"state-major kernel differs from the plain version "
@@ -890,8 +1309,8 @@ def main(argv=None):
           f"bit-equal to the plain version at N={','.join(map(str, sizes))}, "
           f"on both sides of the crossover (N={','.join(map(str, edge_n[AOS]))}"
           f"), on {edges.shape[0]} edge-value states, on {len(kat)} known "
-          f"answers and at the verifier, MMCS and transcript paths' "
-          f"N={','.join(map(str, verify_sizes))}")
+          f"answers and at the verifier, MMCS, transcript and attestation "
+          f"paths' N={','.join(map(str, verify_sizes))}")
 
     lap("kernel")
     # ---- one proof through verify_proof
@@ -1460,8 +1879,7 @@ def main(argv=None):
         t0 = time.perf_counter()
         check(verify_keccak()["ok"], "the Keccak 2^12 proof was rejected")
         lat.append((time.perf_counter() - t0) * 1e3)
-    devk, profk = device_summary(profile_device_time(verify_keccak),
-                                 statistics.median(lat))
+    devk, profk = UNPROFILED, None
     print(f"[verify-keccak] verify_proof of the 2^{KECCAK_LOG_N}-row Keccak "
           f"proof: accepted; {path_launches['verify_keccak'][AOS]} kernel "
           f"launches ({-(-kair.width() // RATE)} sponge chunks per trace "
@@ -1503,8 +1921,7 @@ def main(argv=None):
     verify_batch_keccak(clock)
     stage_ms = clock.ms()
     ms_batch = statistics.median(runs)
-    devb, profb = device_summary(profile_device_time(verify_batch_keccak),
-                                 ms_batch)
+    devb, profb = UNPROFILED, None
     qps = B_KECCAK * v_keccak.Q / (ms_batch / 1e3)
     print(f"[batch-keccak] B={B_KECCAK} x Q={v_keccak.Q} KeccakAir 2^"
           f"{KECCAK_LOG_N} proofs: verdicts exact ({len(lanes)} tampered "
@@ -1616,8 +2033,7 @@ def main(argv=None):
         steady.append((time.perf_counter() - t0) * 1e3)
     bk_stage_ms = clock.ms()
     bk_ms = statistics.median(steady)
-    devbk, profbk = device_summary(profile_device_time(
-        lambda: bpk.prove(ktraces)), bk_ms)
+    devbk, profbk = UNPROFILED, None
     kfs = B_KECCAK_PROVE * n_perm / (bk_ms / 1e3)
     lk = path_launches["prove_batch_keccak"]
     print(f"[batch-prove-keccak] BatchProver, B={B_KECCAK_PROVE} x 2^"
@@ -1675,6 +2091,8 @@ def main(argv=None):
     report["gl3"] = {"n": n3, "ms": gl3_ms}
 
     lap("gl3")
+    attestation_phases(att, proof, fc, cfg, split_max, path_launches,
+                       path_shapes, report, lap)
     # ---- each kernel at each path's shapes
     clk_hz = max_sm_mhz * 1e6
     timed = {}
@@ -1746,7 +2164,8 @@ def main(argv=None):
             torch.cuda.empty_cache()
 
     def faster(t, var, other):
-        key = "_device" if t["whole_device"] is not None else ""
+        measured = None not in (t[var + "_device"], t[other + "_device"])
+        key = "_device" if measured else ""
         return t[var + key] < t[other + key]
 
     crossover = {k: max([n for n, t in variant_ms[k].items()
@@ -1769,7 +2188,7 @@ def main(argv=None):
     for kernel, src, rep, err in (
             (AOS, p2.KERNEL_SOURCE, p2.REPLACES, err_aos),
             (SOA, p2.SOA_KERNEL_SOURCE, p2.SOA_REPLACES, err_soa)):
-        main_path = paths[kernel]["prove_batch_keccak"]
+        main_path = paths[kernel][MAIN_PATH]
         kernel_rows.append({
             "name": kernel, "route": "cuda", "source": src, "replaces": rep,
             "launches": main_path["launches"],
@@ -1782,11 +2201,9 @@ def main(argv=None):
             "sass_bound_ms": main_path["sass_bound_ms"],
             "at_2_pow_21": same_n[kernel], "paths": paths[kernel],
             "split_max_states": split_max[kernel],
-            "main_path": "prove_batch_keccak",
-            "launches_split": path_launches["prove_batch_keccak"][
-                kernel + ".split"],
-            "launches_whole": path_launches["prove_batch_keccak"][
-                kernel + ".whole"],
+            "main_path": MAIN_PATH,
+            "launches_split": path_launches[MAIN_PATH][kernel + ".split"],
+            "launches_whole": path_launches[MAIN_PATH][kernel + ".whole"],
             "launches_by_variant": {
                 p: {var: path_launches[p][f"{kernel}.{var}"]
                     for var in ("whole", "split")} for p in path_launches},

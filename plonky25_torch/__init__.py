@@ -10,8 +10,11 @@ them, one at a time (`prover.prove`) or in batches (`prover.BatchProver`).
 Field arithmetic is PyTorch on int64 limb tensors; every Poseidon2
 permutation on a CUDA tensor runs a hand-written kernel: csrc/poseidon2.cu
 on state-major states (the verifier, the transcripts), csrc/poseidon2_soa.cu
-on lane-major ones (the prover's Merkle trees and PoW grind).  Entry points
-take `device=` ("cuda" by default) and never move to the CPU on their own.
+on lane-major ones (the prover's Merkle trees and PoW grind).  `attest`
+proves, in one 620-column VerifierAir STARK, that a proof verified, and
+checks such attestations (depth 1), verifying and proving through the
+port or through the int oracle of `refimpl`.  Entry points take `device=`
+("cuda" by default) and never move to the CPU on their own.
 
 The package imports torch, numpy and the standard library only: nothing of
 JAX and nothing of plonky25_tpu, whose modules it mirrors by name.

@@ -96,6 +96,14 @@ def to_u64(x: GL) -> np.ndarray:
     return hi * (1 << 32) + lo
 
 
+def to_u64_np(x: GL) -> np.ndarray:
+    """GL -> numpy uint64 array of canonical values (host side; the bulk
+    form of to_u64)."""
+    lo = x.lo.cpu().numpy().astype(np.uint64)
+    hi = x.hi.cpu().numpy().astype(np.uint64)
+    return (hi << np.uint64(32)) | lo
+
+
 # ------------------------------------------------------------ arithmetic
 
 def _canonical(lo, hi) -> GL:

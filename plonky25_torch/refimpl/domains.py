@@ -1,13 +1,21 @@
-"""Two-adic multiplicative coset domains on plain ints (the part of
-plonky25_tpu/refimpl/domains.py that the verifier's constructor uses).
+"""Two-adic multiplicative coset domains on plain Python ints (a copy of
+plonky25_tpu/refimpl/domains.py).
 
-Mirrors src/p3/serde/two_adic.rs (closed-form domain math)."""
+Mirrors src/p3/serde/two_adic.rs (closed-form domain & selector math)."""
 
 from dataclasses import dataclass
 
 from ..constants import GOLDILOCKS_P as P
 from ..utils.bits import log2_strict, log2_ceil
-from .field import Gl
+from .field import Gl, Gl2
+
+
+@dataclass(frozen=True)
+class LagrangeSelectors:
+    is_first_row: tuple
+    is_last_row: tuple
+    is_transition: tuple
+    inv_zeroifier: tuple
 
 
 @dataclass(frozen=True)
@@ -23,6 +31,10 @@ class TwoAdicMultiplicativeCoset:
 
     def gen(self) -> int:
         return Gl.two_adic_generator(self.log_n)
+
+    def next_point(self, x, ext=Gl2):
+        """x * g (ext * base), two_adic.rs:39-46."""
+        return ext.mul_base(x, self.gen())
 
     @staticmethod
     def natural_domain_for_degree(log_n_max: int, degree: int) -> "TwoAdicMultiplicativeCoset":
@@ -47,6 +59,25 @@ class TwoAdicMultiplicativeCoset:
             )
             for i in range(num_chunks)
         ]
+
+    def selectors_at_point(self, point, ext=Gl2) -> LagrangeSelectors:
+        """Lagrange selectors from z_H(x) = x^(2^log_n) - 1 (two_adic.rs:92-122)."""
+        unshifted = ext.mul_base(point, Gl.inv(self.shift))
+        z_h = ext.sub_base(ext.exp_power_of_2(unshifted, self.log_n), 1)
+        gen_inv = Gl.inv(self.gen())
+        up_minus_one = ext.sub_base(unshifted, 1)
+        up_minus_gen_inv = ext.sub_base(unshifted, gen_inv)
+        return LagrangeSelectors(
+            is_first_row=ext.div(z_h, up_minus_one),
+            is_last_row=ext.div(z_h, up_minus_gen_inv),
+            is_transition=up_minus_gen_inv,
+            inv_zeroifier=ext.inv(z_h),
+        )
+
+    def zp_at_point(self, point, ext=Gl2):
+        """(point/shift)^(2^log_n) - 1, ext (two_adic.rs:124-135)."""
+        unshifted = ext.mul_base(point, Gl.inv(self.shift))
+        return ext.sub_base(ext.exp_power_of_2(unshifted, self.log_n), 1)
 
     def zp_at_single_point(self, point: int) -> int:
         """Base-field variant (two_adic.rs:137-147)."""

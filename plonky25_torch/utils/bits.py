@@ -1,6 +1,7 @@
 """Bit and log helpers (semantics of src/p3/utils.rs).
 
-The log helpers are copies of plonky25_tpu/utils/bits.py;
+The log helpers and `reverse_bits_len` are copies of
+plonky25_tpu/utils/bits.py;
 `reverse_bits_len_u32` is the tensor form of plonky25_tpu/ops/u32.py's.
 """
 
@@ -17,6 +18,15 @@ def log2_strict(n: int) -> int:
 def log2_ceil(n: int) -> int:
     """ceil(log2(n)), with log2_ceil(0) == 0 (utils.rs:10-13)."""
     return max(n - 1, 0).bit_length()
+
+
+def reverse_bits_len(x: int, bit_len: int) -> int:
+    """Reverse the low `bit_len` bits of x (utils.rs:20-30)."""
+    out = 0
+    for _ in range(bit_len):
+        out = (out << 1) | (x & 1)
+        x >>= 1
+    return out
 
 
 def reverse_bits_len_u32(x: torch.Tensor, bit_len: int) -> torch.Tensor:

@@ -51,6 +51,14 @@ Writes, into tests/fixtures/ (every group by default):
       (shared with other jobs; most of it XLA compiling the reduced-
       opening stage), above the 20 minutes aimed at, and the full height
       was kept (a trial at 2^8 rows took 741 s);
+  attest_expected.json  (group `attest`) what the JAX attestation
+      machinery derives where it runs JAX code (XLA would compile in the
+      port's tests): poseidon2_core_rows of 16 seeded states (seed 16, as
+      sha256 of the row-major uint64 bytes), and for the schedules of
+      artifacts/attestation_small.json's proofs (fib(8) alone, fib(8) +
+      fib(16)) and of tests/test_attest_multistage.py's 16-row RlcAir
+      proof (seed 11, FriConfig(1, 2, 1)): derive_gammas, fold_accumulator,
+      the recorded samples and the sha256 of build_trace_rowmajor;
   torch_tests_jax_values.json  (group `jax_values`) JAX results that
       tests/test_torch_verifier.py, test_torch_multistage.py and
       test_torch_prover.py compare with (see jax_values below); 13,638
@@ -510,9 +518,60 @@ def jax_values():
     return [path]
 
 
+def attest():
+    """JAX values for tests/test_torch_attest*.py (see the docstring)."""
+    import plonky25_tpu.attest as A
+    import plonky25_tpu.attest_program as attp
+    from plonky25_tpu.fields.goldilocks import to_u64_np
+    from plonky25_tpu.models.poseidon2_air import poseidon2_core_rows
+
+    def sha(a):
+        return hashlib.sha256(
+            np.ascontiguousarray(a, dtype=np.uint64).tobytes()).hexdigest()
+
+    rng = np.random.default_rng(16)
+    states = rng.integers(0, P, size=(16, 12), dtype=np.uint64)
+    out = {"core_rows": {
+        "seed": 16,
+        "sha256": sha(to_u64_np(poseidon2_core_rows(gl.from_u64(states))))}}
+
+    def schedule_values(proofs, air, fc):
+        rows, samples = [], []
+        for p in proofs:
+            ch = A._RecordingChallenger()
+            assert ref_verify(p, air, fc, challenger=ch).ok
+            samples.append(ch.samples)
+            rows += attp.build_verification_schedule(
+                p, derive_config(p, fc), air, ch.samples)
+        gamma = attp.derive_gammas(rows)
+        return {"n_rows": len(rows), "samples": samples,
+                "gamma": list(gamma),
+                "acc": list(attp.fold_accumulator(rows, gamma)),
+                "trace_sha256": sha(attp.build_trace_rowmajor(rows, gamma))}
+
+    with open(os.path.join(ROOT, "artifacts", "attestation_small.json")) as f:
+        small = json.load(f)
+    fc = FriConfig(**small["fc"])
+    p1, p2 = [proof_from_json(p) for p in small["proofs"]]
+    out["small"] = schedule_values([p1], FibonacciAir(), fc)
+    out["multi"] = schedule_values([p1, p2], FibonacciAir(), fc)
+    rng = random.Random(11)
+    trace = [[rng.randrange(1 << 63), rng.randrange(1 << 63)]
+             for _ in range(16)]
+    rlc_fc = FriConfig(log_blowup=1, num_queries=2, proof_of_work_bits=1)
+    rlc = prove(RlcAir(), trace, rlc_fc)
+    out["rlc"] = schedule_values([rlc], RlcAir(), rlc_fc)
+    out["rlc"]["proof_sha256"] = hashlib.sha256(json.dumps(
+        proof_to_json(rlc), separators=(",", ":")).encode()).hexdigest()
+    path = os.path.join(OUT, "attest_expected.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    return [path]
+
+
 GROUPS = {"fibonacci": fibonacci, "multistage": multistage, "mmcs": mmcs,
           "keccak": keccak, "keccak_digest": keccak_digest,
-          "jax_values": jax_values}
+          "jax_values": jax_values, "attest": attest}
 
 
 def main():

@@ -71,6 +71,8 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     from plonky25_torch.prover import (BatchProver, TorchProver, prove,
                                        prove_batch_on_device)
     from plonky25_torch.witness import pack_witness
+    import plonky25_torch.attest as A
+    import plonky25_torch.attest_program as ap
 
     def no_cpu_work(state):
         raise AssertionError("ran on the CPU without being asked")
@@ -80,6 +82,10 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     proof = load_proof(FIXTURE)
     fc = FriConfig(1, 100, 16)
     cfg = derive_config(proof, fc)
+    bundle = A.load_bundle(os.path.join(ROOT, "artifacts",
+                                        "attestation_fibonacci.json"))
+    rows = ap.build_verification_schedule(proof, cfg, FibonacciAir(),
+                                          bundle.samples)
     for call in (lambda: verify_proof(proof, FibonacciAir(), fc),
                  lambda: get_verifier(FibonacciAir(), cfg),
                  lambda: BatchVerifier(FibonacciAir(), cfg),
@@ -89,7 +95,14 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
                  lambda: TorchProver(FibonacciAir(), 4, fc),
                  lambda: BatchProver(FibonacciAir(), 4, fc),
                  lambda: prove_batch_on_device(
-                     FibonacciAir(), [fibonacci_trace(16)] * 2, fc)):
+                     FibonacciAir(), [fibonacci_trace(16)] * 2, fc),
+                 lambda: A.attest(proof, FibonacciAir(), fc),
+                 lambda: A.attest_many([proof] * 2, FibonacciAir(), fc),
+                 lambda: A.check_attestation(bundle, proof, FibonacciAir(), fc),
+                 lambda: A.check_attestations(bundle, [proof], FibonacciAir(),
+                                              fc),
+                 lambda: ap.derive_gammas(rows),
+                 lambda: ap.build_trace_cols(rows, bundle.gamma)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
