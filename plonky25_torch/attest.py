@@ -1,5 +1,5 @@
 """Recursive attestation: a STARK proving "this Plonky3 proof verified"
-(the depth-1 part of plonky25_tpu/attest.py, on PyTorch).
+(plonky25_tpu/attest.py on PyTorch: depth 1 and the depth-2 composition).
 
 The analogue of the reference's whole purpose — building a plonky2 circuit
 that re-executes Plonky3 verification and proving it (`p3_verify_proof` +
@@ -41,8 +41,19 @@ Every entry point takes `device=` ("cuda" by default) and runs the gamma
 sponge, the trace builder and the port's prover and verifier there; the
 flags `use_device_prover` / `use_device_verifier` choose, as in the JAX
 package, between the port's TorchProver / TorchVerifier (True) and the int
-oracle of refimpl/ (False).  The composed (depth-2) attestations of the
-JAX package are not part of this module.
+oracle of refimpl/ (False).
+
+## Composition (depth 2)
+
+attest_composed attests an attestation with the in-trace compression:
+the outer VerifierAir trace verifies the inner STARK (as a schedule) and
+re-derives the inner (gamma, acc) from the inner canonical pair stream in
+'w' rows (attest_program.build_compression_rows).  check_composed needs
+the outer schedule and one STARK verification, never the target proof's
+bytes: the inner schedule's slot structure comes from a zero-valued
+proof of the target's shape (attest_program.make_zero_proof).
+attest_attestation / check_attested_attestation attest the verification
+of an attestation STARK and bind it to the target proof on the host.
 """
 
 from __future__ import annotations
@@ -57,16 +68,14 @@ from .constants import GOLDILOCKS_P as P
 from .device import resolve_device
 from .errors import InvalidProofShape, P25Error, check_proof_shape
 from .fields import gl
-from .fields.goldilocks import GL
 from .models.verifier_air import VerifierAir
 from .parallel.batch import BatchVerifier, stack_witnesses
-from .proof import (FriConfig, Proof, derive_config, proof_from_json,
-                    proof_to_json)
-from .prover.prove import get_prover
+from .proof import (FriConfig, P3Config, Proof, derive_config,
+                    proof_from_json, proof_to_json)
+from .prover.prove import prove_on_device
 from .refimpl.challenger import DuplexChallenger
 from .refimpl.prover import prove as refimpl_prove
 from .refimpl.verifier import verify as refimpl_verify
-from .utils.bits import log2_strict
 from .utils.tree import tree_map
 from .verifier import get_verifier, verify_proof
 from .witness import pack_witness
@@ -213,16 +222,15 @@ def _prove_schedule(rows, gamma, acc, att_fc: FriConfig,
                     use_device_prover: bool, device="cuda",
                     on_step=None) -> Proof:
     """Build the VerifierAir trace on `device` and prove it: with the
-    port's prover from its columns (the JAX package's prove_on_device of
-    a column-major trace), or with the int prover from its rows."""
+    port's prove_on_device from its columns (the quotient segmented by the
+    trace's size, as the JAX package's), or with the int prover from its
+    rows."""
     mark = on_step or (lambda name: None)
     v_air = VerifierAir({"gamma": gamma, "acc": acc})
     if use_device_prover:
         cols = ap.build_trace_cols(rows, gamma, device=device)   # (W, H)
         mark("trace")
-        prover = get_prover(v_air, log2_strict(cols.shape[1]), att_fc,
-                            device)
-        stark = prover.prove_columns(GL(cols.lo[None], cols.hi[None]))[0]
+        stark = prove_on_device(v_air, cols, att_fc, device)
         mark("prove")
         return stark
     trace = ap.build_trace_rowmajor(rows, gamma, device=device)
@@ -325,11 +333,14 @@ def _structural_ok(proof: Proof, air, fri_config: FriConfig,
 
 
 def _check_one_schedule(bundle, schedules, use_device_verifier,
-                        device) -> bool:
-    """Shared tail of check_attestation(s): canonical recompute + STARK."""
+                        device, on_step=None) -> bool:
+    """Shared tail of check_attestation(s): canonical recompute + STARK
+    (`on_step` after the gammas and after the STARK's verification)."""
+    mark = on_step or (lambda name: None)
     rows = [r for sched in schedules for r in sched]
     gamma = ap.derive_gammas(rows, device)
     acc = ap.fold_accumulator(rows, gamma)
+    mark("gammas")
     if (gamma != tuple(bundle.gamma) or acc != tuple(bundle.acc)
             or len(rows) != bundle.n_rows):
         return False
@@ -339,10 +350,13 @@ def _check_one_schedule(bundle, schedules, use_device_verifier,
 
     v_air = VerifierAir({"gamma": gamma, "acc": acc})
     if use_device_verifier:
-        r = verify_proof(bundle.stark, v_air, bundle.att_fri_config, device)
-        return bool(r.ok)
-    return bool(refimpl_verify(bundle.stark, v_air,
-                               bundle.att_fri_config).ok)
+        ok = bool(verify_proof(bundle.stark, v_air, bundle.att_fri_config,
+                               device).ok)
+    else:
+        ok = bool(refimpl_verify(bundle.stark, v_air,
+                                 bundle.att_fri_config).ok)
+    mark("verify")
+    return ok
 
 
 def check_attestation(bundle: AttestationBundle, proof: Proof, air,
@@ -508,3 +522,287 @@ def save_bundle(bundle, path: str) -> None:
 def load_bundle(path: str):
     with open(path) as f:
         return bundle_from_json(json.load(f))
+
+
+def composed_to_json(c: "ComposedAttestation") -> Dict:
+    """JSON form of a ComposedAttestation: protocol 3, kind "composed",
+    the outer bundle as bundle_to_json."""
+    return {
+        "protocol": 3,
+        "kind": "composed",
+        "outer": bundle_to_json(c.outer),
+        "inner_stark": proof_to_json(c.inner_stark),
+        "inner_gamma": list(c.inner_gamma),
+        "inner_acc": list(c.inner_acc),
+        "inner_samples": list(c.inner_samples),
+        "inner_n_rows": c.inner_n_rows,
+        "target_shape": dict(c.target_shape),
+        "statement": c.statement,
+    }
+
+
+def composed_from_json(obj: Dict) -> "ComposedAttestation":
+    if obj.get("protocol") != 3 or obj.get("kind") != "composed":
+        raise ValueError("not a protocol-3 composed attestation")
+    return ComposedAttestation(
+        outer=bundle_from_json(obj["outer"]),
+        inner_stark=proof_from_json(obj["inner_stark"]),
+        inner_gamma=tuple(obj["inner_gamma"]),
+        inner_acc=tuple(obj["inner_acc"]),
+        inner_samples=list(obj["inner_samples"]),
+        inner_n_rows=obj["inner_n_rows"],
+        target_shape=dict(obj["target_shape"]),
+        statement=obj.get("statement"),
+    )
+
+
+# ------------------------------------------------------ recursive composition
+
+def _verifier_air_of(bundle) -> VerifierAir:
+    return VerifierAir({"gamma": tuple(bundle.gamma),
+                        "acc": tuple(bundle.acc)})
+
+
+@dataclass
+class ComposedAttestation:
+    """Depth-2 recursion with in-trace inner binding: `outer` attests the
+    verification of `inner_stark` and carries, as 'w' rows, the in-trace
+    recomputation of (inner_gamma, inner_acc) from the inner canonical
+    sequence.  The target is identified succinctly by inner_gamma, the
+    sponge digest of its canonical verification sequence."""
+
+    outer: AttestationBundle
+    inner_stark: Proof
+    inner_gamma: Tuple[int, int]
+    inner_acc: Tuple[int, int]
+    inner_samples: List[int]
+    inner_n_rows: int
+    target_shape: Dict            # P3Config fields of the target proof
+    statement: Optional[str] = None
+
+
+def _target_shape_of(config) -> Dict:
+    return {
+        "log_quotient_degree": config.log_quotient_degree,
+        "log_trace_height": config.log_trace_height,
+        "trace_width": config.trace_width,
+        "opening_matrix_log_max_height": config.opening_matrix_log_max_height,
+        "quotient_opened_values_len": config.quotient_opened_values_len,
+        "degree_bits": config.degree_bits,
+        "stage2_width": config.stage2_width,
+    }
+
+
+def composed_statement_digest(c: ComposedAttestation) -> str:
+    """sha256 handle over the composed claim (like statement_digest): the
+    inner binding pair, the target shape and the outer binding values."""
+    claim = {
+        "inner_gamma": list(c.inner_gamma),
+        "inner_acc": list(c.inner_acc),
+        "inner_n_rows": c.inner_n_rows,
+        "target_shape": c.target_shape,
+        "outer_gamma": list(c.outer.gamma),
+        "outer_acc": list(c.outer.acc),
+        "outer_n_rows": c.outer.n_rows,
+    }
+    return hashlib.sha256(json.dumps(claim, sort_keys=True,
+                                     separators=(",", ":")).encode()).hexdigest()
+
+
+def attest_composed(proof: Proof, air, fri_config: FriConfig,
+                    att_fri_config: Optional[FriConfig] = None,
+                    use_device_prover: bool = True,
+                    inner: Optional[AttestationBundle] = None,
+                    device="cuda", on_step=None) -> ComposedAttestation:
+    """Attest `proof`, then attest that attestation with the in-trace
+    compression: the outer VerifierAir trace verifies the inner STARK and
+    re-derives the inner (gamma, acc) from the inner canonical sequence
+    witnessed in 'w' rows.  Pass `inner` to reuse an attestation of
+    `proof` (it is made otherwise).  `on_step(name)`, if given, is called
+    after each step (inner when it is made, record, schedule,
+    outer-schedule, gammas, trace, prove)."""
+    mark = on_step or (lambda name: None)
+    device = resolve_device(device)
+    config = derive_config(proof, fri_config)
+    if inner is None:
+        inner = attest(proof, air, fri_config, att_fri_config,
+                       use_device_prover, device)
+        mark("inner")
+    att_fc = att_fri_config or DEFAULT_ATT_FRI_CONFIG
+
+    v_air = _verifier_air_of(inner)
+    outer_samples = _record_verification(inner.stark, v_air,
+                                         inner.att_fri_config,
+                                         use_device_prover, device)
+    mark("record")
+    inner_rows = ap.build_verification_schedule(proof, config, air,
+                                                inner.samples)
+    comp = ap.build_compression_rows(
+        len(inner_rows), ap.sequence_pairs(inner_rows),
+        ap.pair_exponents(inner_rows), inner.gamma, inner.acc)
+    mark("schedule")
+    outer_cfg = derive_config(inner.stark, inner.att_fri_config)
+    outer_rows = ap.build_verification_schedule(
+        inner.stark, outer_cfg, v_air, outer_samples) + comp
+    mark("outer-schedule")
+    gamma_o = ap.derive_gammas(outer_rows, device)
+    acc_o = ap.fold_accumulator(outer_rows, gamma_o)
+    mark("gammas")
+    stark_o = _prove_schedule(outer_rows, gamma_o, acc_o, att_fc,
+                              use_device_prover, device, on_step)
+    outer = AttestationBundle(
+        stark=stark_o, samples=list(outer_samples), gamma=gamma_o,
+        acc=acc_o, att_fri_config=att_fc, n_rows=len(outer_rows))
+    c = ComposedAttestation(
+        outer=outer, inner_stark=inner.stark,
+        inner_gamma=tuple(inner.gamma), inner_acc=tuple(inner.acc),
+        inner_samples=list(inner.samples), inner_n_rows=inner.n_rows,
+        target_shape=_target_shape_of(config))
+    c.statement = composed_statement_digest(c)
+    return c
+
+
+def check_composed(c: ComposedAttestation, air, fri_config: FriConfig,
+                   use_device_verifier: bool = True,
+                   att_fri_config: Optional[FriConfig] = None,
+                   target_proof: Optional[Proof] = None,
+                   device="cuda", on_step=None) -> bool:
+    """Accept iff `c.outer` attests a valid verification of
+    `c.inner_stark` whose trace also re-derives (inner_gamma, inner_acc)
+    from the witnessed inner sequence.
+
+    No inner schedule is marshalled from proof bytes: the inner slot
+    structure comes from a zero-valued proof of `c.target_shape`, and the
+    inner values are bound in the trace (chain digest == gamma, re-folded
+    accumulator == acc).  Everything before the outer gammas refuses
+    without deriving them.  Pass `target_proof` to also pin the claim to
+    concrete bytes (one schedule marshal and one gamma derivation, the
+    depth-1 binding).  `on_step(name)`, if given, is called after each
+    step reached (schedule, gammas, verify, target)."""
+    mark = on_step or (lambda name: None)
+    device = resolve_device(device)
+    if not _att_config_acceptable(c.outer.att_fri_config, att_fri_config):
+        return False
+    if c.statement != composed_statement_digest(c):
+        return False
+    # target-shape sanity against the caller's AIR + config
+    try:
+        cfg = P3Config(fri_config=fri_config, **c.target_shape)
+    except TypeError:
+        return False
+    if cfg.trace_width != air.width():
+        return False
+    if cfg.stage2_width != air.stage2_width():
+        return False
+    n_ch = air.num_challenges()
+    if len(c.inner_samples) != ap.expected_sample_count(cfg, n_ch):
+        return False
+    if not all(isinstance(s, int) and 0 <= s < P
+               for s in c.inner_samples):
+        return False
+    pow_sample = c.inner_samples[ap.n_presamples(cfg, n_ch) - 1]
+    if pow_sample & ((1 << fri_config.proof_of_work_bits) - 1) != 0:
+        return False
+
+    # the inner slot structure from a value-free proof of the shape
+    try:
+        template = ap.build_verification_schedule(
+            ap.make_zero_proof(cfg), cfg, air, c.inner_samples)
+    except Exception:
+        return False
+    if len(template) != c.inner_n_rows:
+        return False
+    comp = ap.build_compression_rows(
+        len(template), ap.sequence_pairs(template),
+        ap.pair_exponents(template), tuple(c.inner_gamma),
+        tuple(c.inner_acc))
+
+    # the outer schedule: the inner STARK's verification under the pinned
+    # attestation config (never the bundle's word for it)
+    pinned = att_fri_config or DEFAULT_ATT_FRI_CONFIG
+    v_air = VerifierAir({"gamma": tuple(c.inner_gamma),
+                         "acc": tuple(c.inner_acc)})
+    if not _structural_ok(c.inner_stark, v_air, pinned, c.outer.samples):
+        return False
+    try:
+        outer_cfg = derive_config(c.inner_stark, pinned)
+        outer_rows = ap.build_verification_schedule(
+            c.inner_stark, outer_cfg, v_air, c.outer.samples) + comp
+    except Exception:
+        return False
+    mark("schedule")
+    if not _check_one_schedule(c.outer, [outer_rows], use_device_verifier,
+                               device, on_step):
+        return False
+    if target_proof is not None:
+        # the depth-1 binding: the presented bytes' canonical sequence
+        # must be the one inner_gamma identifies
+        if not _structural_ok(target_proof, air, fri_config,
+                              c.inner_samples):
+            return False
+        try:
+            t_cfg = derive_config(target_proof, fri_config)
+            rows = ap.build_verification_schedule(
+                target_proof, t_cfg, air, c.inner_samples)
+        except Exception:
+            return False
+        gamma = ap.derive_gammas(rows, device)
+        acc = ap.fold_accumulator(rows, gamma)
+        if (gamma != tuple(c.inner_gamma) or acc != tuple(c.inner_acc)
+                or len(rows) != c.inner_n_rows):
+            return False
+        mark("target")
+    return True
+
+
+def attest_attestation(bundle, att_fri_config: Optional[FriConfig] = None,
+                       use_device_prover: bool = True, device="cuda",
+                       on_step=None) -> AttestationBundle:
+    """Attest the verification of an attestation STARK: its VerifierAir
+    is just another attestable AIR.  The output attests "this VerifierAir
+    STARK verifies under publics (gamma, acc)"; binding those publics to
+    the original target proof stays the checker's schedule recomputation
+    (check_attested_attestation)."""
+    return attest(bundle.stark, _verifier_air_of(bundle),
+                  bundle.att_fri_config, att_fri_config=att_fri_config,
+                  use_device_prover=use_device_prover, device=device,
+                  on_step=on_step)
+
+
+def check_attested_attestation(outer: AttestationBundle,
+                               inner, proof: Proof, air,
+                               fri_config: FriConfig,
+                               use_device_verifier: bool = True,
+                               att_fri_config: Optional[FriConfig] = None,
+                               device="cuda",
+                               inner_att_fri_config: Optional[
+                                   FriConfig] = None) -> bool:
+    """Accept iff `outer` attests a valid verification of `inner`'s STARK
+    and `inner` is bound to (proof, air, fri_config): the inner schedule
+    is recomputed from the proof bytes (marshalling and the accumulator
+    fold; no STARK verification of the inner proof, which `outer`
+    carries).  `att_fri_config` pins the outer STARK's config and
+    `inner_att_fri_config` the inner's, each the library default when
+    not given (the JAX package pins the inner's to the default always)."""
+    device = resolve_device(device)
+    if not _att_config_acceptable(inner.att_fri_config,
+                                  inner_att_fri_config):
+        return False
+    if not _structural_ok(proof, fri_config=fri_config, air=air,
+                          samples=inner.samples):
+        return False
+    try:
+        config = derive_config(proof, fri_config)
+        rows = ap.build_verification_schedule(proof, config, air,
+                                              inner.samples)
+    except Exception:
+        return False
+    gamma = ap.derive_gammas(rows, device)
+    acc = ap.fold_accumulator(rows, gamma)
+    if (gamma != tuple(inner.gamma) or acc != tuple(inner.acc)
+            or len(rows) != inner.n_rows):
+        return False
+    return check_attestation(outer, inner.stark, _verifier_air_of(inner),
+                             inner.att_fri_config,
+                             use_device_verifier=use_device_verifier,
+                             att_fri_config=att_fri_config, device=device)

@@ -44,7 +44,9 @@ one-shot stage (every transform is per column, the field is exact):
     openings (`_ro_col_slab`).
 
 A knob left at None is worked out per call from the batch size and the
-byte budgets below.  Not ported: `lde_mesh` (multi-device) and `warmup`
+byte budgets below; `prove_on_device` picks S from the trace's size and
+QUOTIENT_EVAL_BYTES, as the JAX package's prove_on_device does from its
+own budget.  Not ported: `lde_mesh` (multi-device) and `warmup`
 (it forces XLA compilation; eager PyTorch compiles nothing ahead).
 """
 
@@ -103,6 +105,18 @@ GRIND_WINDOW = 1 << 16
 LDE_CHUNK_BYTES = 2 << 30       # LDE output of one column chunk
 QUOTIENT_GROUP_BYTES = 2 << 30  # coefficients of one column group
 SLAB_BYTES = 3 << 30            # GF(p^2) (B, slab, N) product of one slab
+# prove_on_device's quotient segmentation: S doubles while the eval's
+# working set, W * q * 32 bytes (locals and nexts as GF(p^2) values at the
+# q = 2^(log_n + lqd) quotient points), divided by S exceeds this budget.
+# From scripts/prover_memory.py --air verifier on the same card (PERF.md):
+# on VerifierAir (620 columns) the quotient stage's temporaries are about
+# 9.8 times the working set per segment (2^16: 25.3, 13.0, 6.5 GB at S = 1,
+# 2, 4; 2^19: 25.7 and 12.9 GB at S = 8 and 16, beside 21.8 GB that the
+# trace, its LDE and coefficients hold).  3 GiB keeps S = 1 up to 2^16 rows
+# (peak 28.0 GB) and gives the 2^19 outer STARK of a composed attestation
+# S = 8 (peak 47.5 GB, 53 s) rather than JAX's 16 (34.6 GB, 77 s); JAX's
+# 2 GiB was sized for a 15.75 GB TPU.
+QUOTIENT_EVAL_BYTES = 3 << 30
 
 
 def grind_window(fri_config: FriConfig) -> int:
@@ -770,9 +784,35 @@ def get_prover(air: Air, log_n: int, fri_config: FriConfig, device="cuda",
     return p
 
 
-def prove(air: Air, trace, fri_config: FriConfig, device="cuda",
-          on_stage=None) -> Proof:
-    """Prove one row-major trace on `device` (the counterpart of
-    prove_on_device)."""
-    return get_prover(air, log2_strict(len(trace)), fri_config,
-                      device).prove(trace, on_stage)
+def quotient_eval_chunks_for(air: Air, log_n: int) -> int:
+    """The quotient segments S that prove_on_device gives a trace of
+    2^log_n rows of `air`: the JAX prover's rule (plonky25_tpu/prover/
+    prove.py:978-1010) over the port's budget, QUOTIENT_EVAL_BYTES."""
+    lqd = log2_ceil(getattr(air, "quotient_degree", lambda: 1)())
+    q_size = 1 << (log_n + lqd)
+    ws = air.width() * q_size * 32
+    s = 1
+    while ws // s > QUOTIENT_EVAL_BYTES and s < q_size:
+        s *= 2
+    return s
+
+
+def prove_on_device(air: Air, trace, fri_config: FriConfig, device="cuda",
+                    on_stage=None) -> Proof:
+    """Prove one trace, row-major (H rows of W values) or a GL of columns
+    (W, H) on `device`, with the quotient segmented as
+    quotient_eval_chunks_for gives (the same bytes at every S)."""
+    if isinstance(trace, GL):
+        log_n = log2_strict(trace.shape[1])
+    else:
+        log_n = log2_strict(len(trace))
+    p = get_prover(air, log_n, fri_config, device,
+                   quotient_eval_chunks_for(air, log_n))
+    if isinstance(trace, GL):
+        return p.prove_columns(GL(trace.lo[None], trace.hi[None]),
+                               on_stage)[0]
+    return p.prove(trace, on_stage)
+
+
+# The port's older name for the same entry point.
+prove = prove_on_device

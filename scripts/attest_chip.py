@@ -1,11 +1,14 @@
 """chip_smoke.py's attestation phases alone, in a fresh process on one
 NVIDIA GPU: build both kernels, hold them to their plain versions at every
-state count the phases launch, then [attest-golden], [check-golden],
-[attest-small] and [attest-many] with their measurements.  The same code
-as in chip_smoke.py, without the earlier phases' live objects and device
+state count the phases launch, then the depth-1 phases ([attest-golden],
+[check-golden], [attest-small], [attest-many]) and the composed ones
+([compose-small], [attest-attestation], [compose-golden],
+[check-composed-golden]) with their measurements.  The same code as in
+chip_smoke.py, without the earlier phases' live objects and device
 allocations beside it.
 
-    python3 scripts/attest_chip.py [--report PATH]
+    python3 scripts/attest_chip.py [--phases all|depth1|composed]
+                                   [--report PATH]
 """
 
 import argparse
@@ -28,6 +31,8 @@ from plonky25_torch.proof import FriConfig, derive_config, load_proof  # noqa: E
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="write the measurements here as JSON")
+    ap.add_argument("--phases", default="all",
+                    choices=("all", "depth1", "composed"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("attest_chip: no CUDA device", file=sys.stderr)
@@ -57,8 +62,11 @@ def main(argv=None):
         report["phase_seconds"][phase] = now - lap_t[0]
         lap_t[0] = now
 
-    cs.attestation_phases(att, proof, fc, derive_config(proof, fc), split_max,
-                          {}, {}, report, lap)
+    if args.phases in ("all", "depth1"):
+        cs.attestation_phases(att, proof, fc, derive_config(proof, fc),
+                              split_max, {}, {}, report, lap)
+    if args.phases in ("all", "composed"):
+        cs.composed_phases(att, proof, fc, split_max, {}, {}, report, lap)
     report["seconds"] = time.perf_counter() - t_start
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

@@ -59,6 +59,18 @@ Writes, into tests/fixtures/ (every group by default):
       fib(16)) and of tests/test_attest_multistage.py's 16-row RlcAir
       proof (seed 11, FriConfig(1, 2, 1)): derive_gammas, fold_accumulator,
       the recorded samples and the sha256 of build_trace_rowmajor;
+  composed_expected.json  (group `composed`) what the JAX package derives,
+      on the CPU and without proving any STARK, for the composed (depth-2)
+      attestations: for the small composition (artifacts/
+      attestation_small.json's fib(8) proof and its `bundle` as the inner
+      attestation), for attest_attestation of that bundle, and for the
+      golden composition (the fib(64) fixture proof and artifacts/
+      attestation_fibonacci.json): the outer samples (the int oracle's
+      recording of the inner STARK's verification), n_rows, the sha256 of
+      the outer schedule's canonical slots and of its pair stream
+      (schedule_digests), the outer gammas and accumulator, the statement
+      (composed_statement_digest, or statement_digest at the outer
+      config for attest_attestation) and the target shape;
   torch_tests_jax_values.json  (group `jax_values`) JAX results that
       tests/test_torch_verifier.py, test_torch_multistage.py and
       test_torch_prover.py compare with (see jax_values below); 13,638
@@ -569,9 +581,99 @@ def attest():
     return [path]
 
 
+def schedule_digests(rows, attp):
+    """sha256 of a schedule's canonical slots, each row as its slot count
+    then its (slot, value) pairs, and of its pair stream, both as
+    little-endian u64."""
+    slots, pairs = [], []
+    for r in rows:
+        sl = attp.canonical_slots(r)
+        slots.append(len(sl))
+        for s, v in sl:
+            slots += (s, v)
+            pairs += (s, v)
+
+    def sha(xs):
+        return hashlib.sha256(np.asarray(xs, dtype="<u8").tobytes()).hexdigest()
+
+    return {"slots_sha256": sha(slots), "pairs_sha256": sha(pairs)}
+
+
+def composed():
+    """JAX values for tests/test_torch_composed*.py and chip_smoke.py's
+    composed phases (see the docstring); no STARK is proved."""
+    import plonky25_tpu.attest as A
+    import plonky25_tpu.attest_program as attp
+
+    def outer_values(proof, air, fc, inner, att_fc, compose):
+        t0 = time.time()
+        v_air = A._verifier_air_of(inner)
+        samples = A._record_verification(inner.stark, v_air,
+                                         inner.att_fri_config,
+                                         use_device=False)
+        rows = attp.build_verification_schedule(
+            inner.stark, derive_config(inner.stark, inner.att_fri_config),
+            v_air, samples)
+        out = {"outer_samples": samples}
+        if compose:
+            cfg = derive_config(proof, fc)
+            inner_rows = attp.build_verification_schedule(proof, cfg, air,
+                                                          inner.samples)
+            comp = attp.build_compression_rows(
+                len(inner_rows), attp.sequence_pairs(inner_rows),
+                attp.pair_exponents(inner_rows), inner.gamma, inner.acc)
+            out.update(inner_n_rows=len(inner_rows),
+                       n_compression_rows=len(comp),
+                       n_verification_rows=len(rows),
+                       target_shape=A._target_shape_of(cfg))
+            rows = rows + comp
+        out["n_rows"] = len(rows)
+        out["n_pairs"] = len(attp.sequence_pairs(rows))
+        out.update(schedule_digests(rows, attp))
+        t1 = time.time()
+        gamma = attp.derive_gammas(rows)
+        acc = attp.fold_accumulator(rows, gamma)
+        out.update(gamma=list(gamma), acc=list(acc))
+        bundle = A.AttestationBundle(
+            stark=inner.stark, samples=list(samples), gamma=gamma, acc=acc,
+            att_fri_config=att_fc, n_rows=len(rows))
+        if compose:
+            c = A.ComposedAttestation(
+                outer=bundle, inner_stark=inner.stark,
+                inner_gamma=tuple(inner.gamma), inner_acc=tuple(inner.acc),
+                inner_samples=list(inner.samples),
+                inner_n_rows=inner.n_rows, target_shape=out["target_shape"])
+            out["statement"] = A.composed_statement_digest(c)
+        else:
+            out["statement"] = A.statement_digest(bundle, inner.stark)
+        out["att_fri_config"] = _fc_json(att_fc)
+        print(f"  {len(rows)} rows: schedule {t1 - t0:.1f} s, gammas and "
+              f"accumulator {time.time() - t1:.1f} s")
+        return out
+
+    with open(os.path.join(ROOT, "artifacts", "attestation_small.json")) as f:
+        small = json.load(f)
+    sfc, satt = FriConfig(**small["fc"]), FriConfig(**small["att_fc"])
+    p1 = proof_from_json(small["proofs"][0])
+    sb = A.bundle_from_json(small["bundle"])
+    air = FibonacciAir()
+    out = {"small": outer_values(p1, air, sfc, sb, satt, True),
+           "attest_attestation": outer_values(p1, air, sfc, sb, satt, False)}
+    with open(os.path.join(OUT, "proof_fibonacci_refimpl.json")) as f:
+        golden_proof = proof_from_json(json.load(f))
+    golden = A.load_bundle(os.path.join(ROOT, "artifacts",
+                                        "attestation_fibonacci.json"))
+    out["golden"] = outer_values(golden_proof, air, FC, golden,
+                                 golden.att_fri_config, True)
+    path = os.path.join(OUT, "composed_expected.json")
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    return [path]
+
+
 GROUPS = {"fibonacci": fibonacci, "multistage": multistage, "mmcs": mmcs,
           "keccak": keccak, "keccak_digest": keccak_digest,
-          "jax_values": jax_values, "attest": attest}
+          "jax_values": jax_values, "attest": attest, "composed": composed}
 
 
 def main():

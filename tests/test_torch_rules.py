@@ -69,7 +69,7 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     from plonky25_torch.models.fibonacci import fibonacci_trace
     from plonky25_torch.parallel import BatchVerifier
     from plonky25_torch.prover import (BatchProver, TorchProver, prove,
-                                       prove_batch_on_device)
+                                       prove_batch_on_device, prove_on_device)
     from plonky25_torch.witness import pack_witness
     import plonky25_torch.attest as A
     import plonky25_torch.attest_program as ap
@@ -86,6 +86,10 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
                                         "attestation_fibonacci.json"))
     rows = ap.build_verification_schedule(proof, cfg, FibonacciAir(),
                                           bundle.samples)
+    composed = A.ComposedAttestation(
+        outer=bundle, inner_stark=bundle.stark, inner_gamma=bundle.gamma,
+        inner_acc=bundle.acc, inner_samples=bundle.samples,
+        inner_n_rows=bundle.n_rows, target_shape=A._target_shape_of(cfg))
     for call in (lambda: verify_proof(proof, FibonacciAir(), fc),
                  lambda: get_verifier(FibonacciAir(), cfg),
                  lambda: BatchVerifier(FibonacciAir(), cfg),
@@ -101,6 +105,14 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
                  lambda: A.check_attestation(bundle, proof, FibonacciAir(), fc),
                  lambda: A.check_attestations(bundle, [proof], FibonacciAir(),
                                               fc),
+                 lambda: A.attest_composed(proof, FibonacciAir(), fc,
+                                           inner=bundle),
+                 lambda: A.check_composed(composed, FibonacciAir(), fc),
+                 lambda: A.attest_attestation(bundle),
+                 lambda: A.check_attested_attestation(
+                     bundle, bundle, proof, FibonacciAir(), fc),
+                 lambda: prove_on_device(FibonacciAir(), fibonacci_trace(16),
+                                         fc),
                  lambda: ap.derive_gammas(rows),
                  lambda: ap.build_trace_cols(rows, bundle.gamma)):
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -189,6 +189,49 @@ def test_rlc_stage2_segmented_is_byte_equal():
     assert base.commitments.stage2 is not None
 
 
+@pytest.mark.parametrize("log_n, want", [(14, 1), (16, 1), (19, 8)])
+def test_prove_on_device_segments_verifier_air_by_the_budget(
+        log_n, want, monkeypatch):
+    """prove_on_device's S for the 620-column VerifierAir: the least power
+    of two with W * 2^(log_n + 1) * 32 / S within QUOTIENT_EVAL_BYTES (the
+    JAX rule; 3 GiB, measured on the H100: PERF.md) — the golden
+    attestation (2^14) and attest_many's B=4 (2^16) unsegmented, the
+    composed attestation's 2^19 outer STARK in 8 segments."""
+    from plonky25_torch.models.verifier_air import VerifierAir
+
+    air = VerifierAir()
+    s = prove_mod.quotient_eval_chunks_for(air, log_n)
+    ws = air.width() * (2 << log_n) * 32
+    assert s == want
+    assert ws // s <= prove_mod.QUOTIENT_EVAL_BYTES
+    assert s == 1 or ws // (s // 2) > prove_mod.QUOTIENT_EVAL_BYTES
+    monkeypatch.setattr(prove_mod, "QUOTIENT_EVAL_BYTES", ws // 16)
+    assert prove_mod.quotient_eval_chunks_for(air, log_n) == 16
+
+
+def test_prove_on_device_segments_and_keeps_the_bytes(monkeypatch):
+    """With the budget a quarter of fib(64)'s working set (2 columns x 128
+    quotient points x 32 bytes), prove_on_device proves its columns at
+    S = 4 and gives the fixture's bytes."""
+    monkeypatch.setattr(prove_mod, "QUOTIENT_EVAL_BYTES", 2048)
+    with open(os.path.join(FIXTURES, "proof_fibonacci_expected.json")) as f:
+        fc = FriConfig(**json.load(f)["fri_config"])
+    with open(os.path.join(FIXTURES, "proof_fibonacci_refimpl.json")) as f:
+        want = f.read()
+    used = []
+    real = prove_mod.get_prover
+
+    def spy(air, log_n, fri_config, device, s=1):
+        used.append(s)
+        return real(air, log_n, fri_config, device, s)
+
+    monkeypatch.setattr(prove_mod, "get_prover", spy)
+    cols = prove_mod.trace_columns([fibonacci_trace(64)], "cpu")
+    got = prove_mod.prove_on_device(FibonacciAir(), type(cols)(
+        cols.lo[0], cols.hi[0]), fc, device="cpu")
+    assert used == [4] and _text(got) == want
+
+
 def test_get_prover_keys_on_the_knobs():
     air = Wide5Air()
     a = get_prover(air, 5, FC, "cpu")
