@@ -98,7 +98,8 @@ Phases, one line each; any failure exits non-zero:
                 `BatchVerifier` call beside a tampered copy, which is
                 rejected; first and steady latency (median of 2),
                 keccak-f/s, stage ms, launches by variant, peak memory
-                (these three Keccak phases are not profiled: UNPROFILED);
+                (these three Keccak phases, [prove-keccak], [prove-rlc] and
+                [prove-multiset] are not profiled: UNPROFILED);
   [gl3]         GF(p^3) mul, inv and div (fields/extension3.py) on the card
                 against the int Gl3 on a seeded sample;
   [attest-golden]  `attest` of the fib(64) fixture proof at FriConfig(1,
@@ -146,15 +147,48 @@ Phases, one line each; any failure exits non-zero:
                 bytes: accepted; the statement stripped and a trace width
                 of 99 refused with no launch; ms, launches and peak per
                 step;
+  [nccl]        `parallel.init_distributed` at tcp://127.0.0.1:<free port>
+                makes a world-size-1 NCCL process group; make_mesh ("q")
+                and make_host_mesh (("b", "q") = (1, 1)) over it; the
+                group is destroyed after the next five phases;
+  [sharded]     `ShardedVerifier` of the fixture proof (Q_pad 100): its
+                verdict, alpha, zeta and 100 query indices equal
+                verify_proof's in the same run, one all_reduce of the
+                flags, launches as verify_proof's; the JAX tamper (query
+                99's quotient sibling ^4) refused; latency beside
+                verify_proof's;
+  [multihost]   `MultiHostBatchVerifier` at (b=1, q=1) on [batch]'s
+                stacked witness (B=2048 x Q=100): [batch]'s verdicts, one
+                all_reduce and one all_gather, queries/s in turns with
+                `BatchVerifier` on the same witness, peak memory; the
+                JAX 4-proof list (query 7's trace sibling ^1 on proof 1):
+                [True, False, True, True], all_ok False;
+  [four-step]   `coset_ntt_four_step` at 2^21 (log_rows 3) over the mesh
+                (two all_to_all_single and one all_gather) and without it
+                equal to `coset_ntt`; `ntt_four_step` at (8, 2^18) equal to
+                `ntt`, forward and inverse; ms per call of each;
+  [prove-lde-mesh]  `TorchProver(lde_mesh=make_mesh())`: fib(64)
+                byte-equal to the fixture; fib(2^20) equal to [prove]'s
+                unmeshed proof (its sha256); first and steady latency (in
+                turns with the unmeshed prover), stage ms, launches, peak
+                memory;
+  [batch-prove-mesh]  `BatchProver.prove(256 x fib(64), mesh=)`: every
+                proof byte-equal to the fixture, one all_gather_object
+                (its host ms); proofs/s beside an unmeshed batch in turns,
+                launches, peak memory;
   [timing]      each kernel at each path's state counts against its bound
-                and its plain version; both kernels, each variant, at
+                and its plain version (the plain version timed once per
+                state count); both kernels, each variant, at
                 N = 1, 2,048, 32,768 and 2^21 and across the crossover
                 (CUDA events, and the kernel's device time alone);
 then the kernel table line {"kernels": [...]} (launches and times of
 MAIN_PATH, compose_golden, with every path's beside them) and the last
 line {"ok": true, "device": {...}}.  Every path is driven with the launch
 counts set to 0 just before it and read just after, and the counts are held
-to the numbers the path's shape gives, by variant too.
+to the numbers the path's shape gives, by variant too.  The multi-device
+phases run at world size 1 on the one card the script uses: their
+collectives, padding and per-rank slicing all run, but nothing is divided
+(the CPU tests divide over 2-4 gloo ranks).
 
 With --report, the full measurements also go to PATH as JSON.  The script
 imports nothing of JAX or plonky25_tpu; it needs the repository beside it.
@@ -171,6 +205,7 @@ import importlib
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -182,6 +217,7 @@ sys.path.insert(0, ROOT)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 import plonky25_torch.attest as attest_mod  # noqa: E402
 import plonky25_torch.attest_program as attp  # noqa: E402
@@ -198,8 +234,16 @@ from plonky25_torch.models import (  # noqa: E402
 from plonky25_torch.models.fibonacci import fibonacci_trace  # noqa: E402
 from plonky25_torch.models.verifier_air import VerifierAir  # noqa: E402
 from plonky25_torch.ops import keccak as keccak_ops  # noqa: E402
+from plonky25_torch.ops import ntt as ntt_ops  # noqa: E402
 from plonky25_torch.ops import build  # noqa: E402
 from plonky25_torch.ops import poseidon2 as p2  # noqa: E402
+from plonky25_torch.parallel import (  # noqa: E402
+    MultiHostBatchVerifier,
+    ShardedVerifier,
+    init_distributed,
+    make_host_mesh,
+    make_mesh,
+)
 from plonky25_torch.parallel.batch import (  # noqa: E402
     BatchVerifier,
     stack_witnesses,
@@ -243,11 +287,12 @@ S_KECCAK = 4            # its quotient_eval_chunks
 TAMPERED = ("pow", "merkle_sibling", "fold_sibling", "final_poly")
 B_ATTEST = 4            # attest_many of the golden proof: 53,908 rows, 2^16
 MAIN_PATH = "compose_golden"  # the kernel line's launches and times
-# [verify-keccak], [batch-keccak] and [batch-prove-keccak] run without their
-# profiled run (profiling costs about 0.23 ms per kernel,
-# scripts/profiler_cost.py), which keeps the script well inside its time
-# limit beside the attestation phases; PERF.md keeps their earlier device
-# times
+# [prove-rlc], [prove-multiset], [prove-keccak], [verify-keccak],
+# [batch-keccak] and [batch-prove-keccak] run without their profiled run
+# (profiling costs about 0.23 ms per kernel, scripts/profiler_cost.py; the
+# three provers launch 115k-133k kernels each), which keeps the script well
+# inside its time limit beside the attestation and multi-device phases;
+# PERF.md keeps their earlier device times
 UNPROFILED = "device time not profiled in this phase (PERF.md)"
 ARTIFACTS = os.path.join(ROOT, "artifacts")
 AOS, SOA = "poseidon2_permute_w12", "poseidon2_permute_soa"
@@ -316,6 +361,21 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def once_ms(fn):
+    """Device time of one call of fn(), no warm-up, from CUDA events: the
+    [timing] phase's plain versions, each already run at its shape by the
+    [kernel] and [kernel-soa] comparisons (dispatch-bound: 0.2-0.4 s a
+    call at any size below 10^5 states, PERF.md)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 WRAPPERS = {AOS: p2.poseidon2_permute, SOA: p2.poseidon2_permute_soa}
@@ -735,10 +795,11 @@ def timed_runs(prove_batch, traces):
 
 
 def measure_prove(air, trace, fc, path, path_launches, path_shapes,
-                  split_max):
+                  split_max, profiled=True):
     """Prove `trace` first and three more times (counted, the steady
-    latency), once with stage events and once under the profiler; check
-    the launches against the path's shape.  Returns (proof, report)."""
+    latency), once with stage events and, if `profiled`, once under the
+    profiler; check the launches against the path's shape.  Returns
+    (proof, report)."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     proof = prove(air, trace, fc, device=DEVICE)
@@ -759,8 +820,11 @@ def measure_prove(air, trace, fc, path, path_launches, path_shapes,
         check(compact(again) == text, f"{path}: proofs differ between runs")
     check_launches(path, path_launches[path], path_shapes[path], split_max)
     stage_ms = clock.ms()
-    dev, prof = device_summary(profile_device_time(
-        lambda: prove(air, trace, fc, device=DEVICE)), statistics.median(steady))
+    dev, prof = UNPROFILED, None
+    if profiled:
+        dev, prof = device_summary(profile_device_time(
+            lambda: prove(air, trace, fc, device=DEVICE)),
+            statistics.median(steady))
     text_line = (
         f"first proof {first_ms:.1f} ms, steady "
         f"{statistics.median(steady):.1f} ms (median of 3); launches {AOS} "
@@ -1567,6 +1631,369 @@ def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
     lap("check-composed-golden")
 
 
+def free_port():
+    """A free TCP port on this host's loopback address."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Collectives:
+    """Count the torch.distributed collectives called inside a `with`:
+    `.calls` {name: calls}; `.ms` {name: host milliseconds in its calls}
+    (an NCCL collective returns once enqueued; all_gather_object returns
+    with the objects).  The port's modules call them through the
+    torch.distributed module, so wrapping its attributes sees every one."""
+
+    NAMES = ("all_reduce", "all_gather", "all_to_all_single",
+             "all_gather_object")
+
+    def __enter__(self):
+        self.calls, self.ms = Counter(), Counter()
+        self.saved = {n: getattr(dist, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            setattr(dist, n, self._counting(n, fn))
+        return self
+
+    def _counting(self, name, fn):
+        def call(*args, **kwargs):
+            self.calls[name] += 1
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.ms[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(dist, n, fn)
+
+
+def gl_equal(a, b):
+    return torch.equal(a.lo, b.lo) and torch.equal(a.hi, b.hi)
+
+
+def multi_device_phases(proof, fc, cfg, fixture_text, expected, ws_batch,
+                        want_batch, prove_sha, split_max, path_launches,
+                        path_shapes, report, lap):
+    """[nccl], [sharded], [multihost], [four-step], [prove-lde-mesh],
+    [batch-prove-mesh] through one world-size-1 NCCL process group, which
+    they destroy at the end.  prove_sha is the sha256 of the unmeshed
+    fib(2^LOG_N) proof's compact JSON; ws_batch and want_batch are
+    [batch]'s stacked witness and verdicts."""
+    fib = FibonacciAir()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    address = f"127.0.0.1:{free_port()}"
+    check(init_distributed(address, 1, 0, device=DEVICE),
+          "init_distributed made no process group")
+    try:
+        want = "nccl" if DEVICE == "cuda" else "gloo"
+        check(dist.get_backend() == want and dist.get_world_size() == 1,
+              f"process group {dist.get_backend()} of "
+              f"{dist.get_world_size()}: want {want} at world size 1")
+        mesh = make_mesh(device=DEVICE)
+        host_mesh = make_host_mesh(device=DEVICE)
+        check(list(host_mesh.mesh.shape) == [1, 1],
+              f"make_host_mesh gave {list(host_mesh.mesh.shape)}")
+        nccl_ms = (time.perf_counter() - t0) * 1e3
+        print(f"[nccl] init_distributed(tcp://{address}, world size 1) made "
+              f"a {dist.get_backend()} group on "
+              f"{torch.cuda.get_device_name(0)}; "
+              f"make_mesh ('q',) and make_host_mesh ('b', 'q') = (1, 1) in "
+              f"{nccl_ms:.1f} ms")
+        report["nccl"] = {"ms": nccl_ms, "address": f"tcp://{address}"}
+        lap("nccl")
+        _sharded_phase(proof, fc, cfg, expected, mesh, fib, split_max,
+                       path_launches, path_shapes, report)
+        lap("sharded")
+        _multihost_phase(proof, cfg, ws_batch, want_batch, host_mesh, fib,
+                         split_max, path_launches, path_shapes, report)
+        lap("multihost")
+        _four_step_phase(mesh, report)
+        lap("four-step")
+        _prove_lde_mesh_phase(fc, fixture_text, prove_sha, mesh, fib,
+                              split_max, path_launches, path_shapes, report)
+        lap("prove-lde-mesh")
+        _batch_prove_mesh_phase(fc, fixture_text, mesh, fib, split_max,
+                                path_launches, path_shapes, report)
+        lap("batch-prove-mesh")
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_phase(proof, fc, cfg, expected, mesh, fib, split_max,
+                   path_launches, path_shapes, report):
+    sv = ShardedVerifier(fib, cfg, mesh, device=DEVICE)
+    check((sv.Q_pad, sv.n_dev) == (fc.num_queries, 1),
+          f"sharded: Q_pad {sv.Q_pad} over {sv.n_dev} ranks")
+    plain = verify_proof(proof, fib, fc, device=DEVICE)
+    with Collectives() as coll:
+        r, path_launches["verify_sharded"] = counted(lambda: sv.verify(proof))
+    check(verdict(r) == verdict(plain) and verdict(r)["ok"] and r.shape_ok,
+          f"sharded: verdict {verdict(r)}, verify_proof's {verdict(plain)}")
+    check(ext_int(r.alpha) == ext_int(plain.alpha) == expected["alpha"]
+          and ext_int(r.zeta) == ext_int(plain.zeta) == expected["zeta"],
+          "sharded: alpha or zeta differs from verify_proof's")
+    check(r.query_indices.tolist() == plain.query_indices.tolist()
+          == expected["query_indices"],
+          "sharded: the query indices differ from verify_proof's")
+    check(dict(coll.calls) == {"all_reduce": 1},
+          f"sharded: collectives {dict(coll.calls)}, want one all_reduce")
+    path_shapes["verify_sharded"] = {
+        AOS: verify_path_shapes(get_verifier(fib, cfg, DEVICE), 1), SOA: {}}
+    check_launches("verify_sharded", path_launches["verify_sharded"],
+                   path_shapes["verify_sharded"], split_max)
+    bad = copy.deepcopy(proof)
+    bad.opening_proof.query_openings[99][1].opening_proof[0][0] ^= 4
+    rt = verdict(sv.verify(bad))
+    check(not rt["ok"] and not rt["merkle_ok"] and rt["pow_ok"]
+          and rt["fold_ok"] and rt["quotient_ok"],
+          f"sharded: the tamper gave {rt}")
+    lat = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        check(bool(sv.verify(proof).ok), "sharded: fixture rejected")
+        lat.append((time.perf_counter() - t0) * 1e3)
+    plain_lat = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        check(bool(verify_proof(proof, fib, fc, device=DEVICE).ok),
+              "fixture rejected")
+        plain_lat.append((time.perf_counter() - t0) * 1e3)
+    print(f"[sharded] ShardedVerifier over make_mesh() ({dist.get_backend()}"
+          f", world size 1, Q_pad {sv.Q_pad}): the fixture accepted with "
+          f"verify_proof's "
+          f"verdict, alpha, zeta and {len(expected['query_indices'])} query "
+          f"indices; one all_reduce of the flags; query 99's quotient "
+          f"sibling ^4 refused by the Merkle check; "
+          f"{path_launches['verify_sharded'][AOS]} launches (verify_proof's "
+          f"shape); latency median {statistics.median(lat):.1f} ms, best "
+          f"{min(lat):.1f} ms (verify_proof in the same run: median "
+          f"{statistics.median(plain_lat):.1f} ms)")
+    report["sharded"] = {"Q_pad": sv.Q_pad, "latency_ms": lat,
+                         "verify_proof_latency_ms": plain_lat,
+                         "collectives": dict(coll.calls),
+                         "collective_ms": dict(coll.ms), "tamper": rt,
+                         "launches": path_launches["verify_sharded"]}
+
+
+def _multihost_phase(proof, cfg, ws_batch, want_batch, host_mesh, fib,
+                     split_max, path_launches, path_shapes, report):
+    mv = MultiHostBatchVerifier(fib, cfg, host_mesh, device=DEVICE)
+    b, q = ws_batch["obs"].shape[0], cfg.fri_config.num_queries
+    check((mv.n_batch, mv.n_query, mv.Q_pad) == (1, 1, q),
+          f"multihost: mesh ({mv.n_batch}, {mv.n_query}), Q_pad {mv.Q_pad}")
+    with Collectives() as coll:
+        ok, path_launches["verify_multihost"] = counted(
+            lambda: mv.verify_witnesses(ws_batch))
+    check(torch.equal(ok, want_batch), "multihost: verdicts differ from "
+          "[batch]'s")
+    check(dict(coll.calls) == {"all_reduce": 1, "all_gather": 1},
+          f"multihost: collectives {dict(coll.calls)}")
+    path_shapes["verify_multihost"] = {
+        AOS: verify_path_shapes(get_verifier(fib, cfg, DEVICE), b), SOA: {}}
+    check_launches("verify_multihost", path_launches["verify_multihost"],
+                   path_shapes["verify_multihost"], split_max)
+    # in turns with BatchVerifier on the same witness: its time in this
+    # phase, not [batch]'s, minutes earlier
+    bv = BatchVerifier(fib, cfg, device=DEVICE)
+    runs, bv_runs = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for verify, times in ((mv, runs), (bv, bv_runs), (bv, bv_runs),
+                          (mv, runs), (mv, runs), (bv, bv_runs)):
+        t0 = time.perf_counter()
+        check(torch.equal(verify.verify_witnesses(ws_batch), want_batch),
+              "multihost: verdicts differ")
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms, bv_ms = statistics.median(runs), statistics.median(bv_runs)
+    bad = copy.deepcopy(proof)
+    bad.opening_proof.query_openings[7][0].opening_proof[2][1] ^= 1
+    ok4, all4 = mv.verify([proof, bad, proof, proof])
+    check(ok4.tolist() == [True, False, True, True] and not bool(all4),
+          f"multihost: the 4-proof list gave {ok4.tolist()}, {bool(all4)}")
+    qps = b * q / (ms / 1e3)
+    print(f"[multihost] MultiHostBatchVerifier over make_host_mesh() (b=1, "
+          f"q=1) on [batch]'s stacked witness, B={b} x Q={q}: verdicts equal"
+          f" to [batch]'s; one all_reduce (flags over 'q') and one "
+          f"all_gather (verdicts over 'b'); "
+          f"{path_launches['verify_multihost'][AOS]} launches ([batch]'s "
+          f"shape); {ms:.1f} ms per batch (median of 3), {qps:.0f} "
+          f"queries/s (BatchVerifier in turns with it: {bv_ms:.1f} ms, "
+          f"{b * q / (bv_ms / 1e3):.0f}); peak {peak:.2f} GB; [fixture, "
+          f"query 7's"
+          f" trace sibling ^1, fixture, fixture] gave {ok4.tolist()}, "
+          f"all_ok {bool(all4)}")
+    report["multihost"] = {"B": b, "Q": q, "ms_runs": runs, "ms": ms,
+                           "queries_per_s": qps, "peak_allocated_gb": peak,
+                           "batch_verifier_ms_runs": bv_runs,
+                           "batch_verifier_queries_per_s":
+                               b * q / (bv_ms / 1e3),
+                           "collectives": dict(coll.calls),
+                           "collective_ms": dict(coll.ms),
+                           "four_proofs": ok4.tolist(),
+                           "launches": path_launches["verify_multihost"]}
+
+
+def _four_step_phase(mesh, report):
+    rng = np.random.default_rng(0x4F5)
+    n = 1 << (LOG_N + 1)
+    coeffs = gl.from_u64(rng.integers(0, P, size=n, dtype=np.uint64), DEVICE)
+    want = ntt_ops.coset_ntt(coeffs, 7)
+    with Collectives() as coll:
+        got = ntt_ops.coset_ntt_four_step(coeffs, 7, log_rows=3, mesh=mesh)
+    check(gl_equal(got, want), "four-step: coset_ntt_four_step over the mesh "
+          "differs from coset_ntt")
+    check(dict(coll.calls) == {"all_to_all_single": 2, "all_gather": 1},
+          f"four-step: collectives {dict(coll.calls)}")
+    check(gl_equal(ntt_ops.coset_ntt_four_step(coeffs, 7, log_rows=3), want),
+          "four-step: coset_ntt_four_step without a mesh differs")
+    x = gl.from_u64(rng.integers(0, P, size=(8, n // 8), dtype=np.uint64),
+                    DEVICE)
+    flat = x.reshape(n)
+    for inverse in (False, True):
+        check(gl_equal(ntt_ops.four_step_output(
+            ntt_ops.ntt_four_step(x, inverse)), ntt_ops.ntt(flat, inverse)),
+            f"four-step: ntt_four_step (inverse={inverse}) differs from ntt")
+    ms = {
+        "coset_ntt": cuda_ms(lambda: ntt_ops.coset_ntt(coeffs, 7), 5),
+        "coset_ntt_four_step_mesh": cuda_ms(
+            lambda: ntt_ops.coset_ntt_four_step(coeffs, 7, 3, mesh=mesh), 5),
+        "coset_ntt_four_step": cuda_ms(
+            lambda: ntt_ops.coset_ntt_four_step(coeffs, 7, 3), 5),
+        "ntt": cuda_ms(lambda: ntt_ops.ntt(flat), 5),
+        "ntt_four_step": cuda_ms(lambda: ntt_ops.ntt_four_step(x), 5)}
+    print(f"[four-step] n=2^{LOG_N + 1}: coset_ntt_four_step (log_rows 3) "
+          f"over make_mesh() (two all_to_all_single, one all_gather) and "
+          f"without a mesh equal coset_ntt; ntt_four_step at (8, 2^"
+          f"{LOG_N - 2}) equals ntt forward and inverse; ms per call "
+          + ", ".join(f"{k} {t:.2f}" for k, t in ms.items()))
+    report["four_step"] = {"n": n, "ms": ms, "collectives": dict(coll.calls),
+                           "collective_ms": dict(coll.ms)}
+    del coeffs, want, got, x, flat
+    torch.cuda.empty_cache()
+
+
+def _prove_lde_mesh_phase(fc, fixture_text, prove_sha, mesh, fib, split_max,
+                          path_launches, path_shapes, report):
+    p64 = TorchProver(fib, 6, fc, DEVICE, lde_mesh=mesh)
+    with Collectives() as coll64:
+        pr, path_launches["prove_64_lde_mesh"] = counted(
+            lambda: p64.prove(fibonacci_trace(64)))
+    check(compact(pr) == fixture_text, "prove-lde-mesh: the fib(64) proof "
+          "differs from tests/fixtures/proof_fibonacci_refimpl.json")
+    path_shapes["prove_64_lde_mesh"] = prove_path_shapes(
+        6, fc, fib, 1, pr.opening_proof.fri_proof.pow_witness
+        // grind_window(fc) + 1)
+    check_launches("prove_64_lde_mesh", path_launches["prove_64_lde_mesh"],
+                   path_shapes["prove_64_lde_mesh"], split_max)
+    # the trace's LDE commit (the quotient chunks' LDEs are not meshed, as
+    # in the JAX prover): two all-to-alls and one all-gather
+    check(dict(coll64.calls) == {"all_to_all_single": 2, "all_gather": 1},
+          f"prove-lde-mesh: collectives {dict(coll64.calls)}")
+    trace = np.asarray(fibonacci_trace(1 << LOG_N), dtype=np.uint64)
+    big = TorchProver(fib, LOG_N, fc, DEVICE, lde_mesh=mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pb = big.prove(trace)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    text = compact(pb)
+    check(hashlib.sha256(text.encode()).hexdigest() == prove_sha,
+          f"prove-lde-mesh: fib(2^{LOG_N}) differs from [prove]'s proof")
+    windows = pb.opening_proof.fri_proof.pow_witness // grind_window(fc) + 1
+    path_shapes["prove_lde_mesh"] = prove_path_shapes(LOG_N, fc, fib, 1,
+                                                      windows)
+    # in turns with [prove]'s unmeshed prover; stage events on the last
+    steady, plain = [], []
+    for meshed in (True, False, False, True):
+        t0 = time.perf_counter()
+        if meshed:
+            clock = StageClock()
+            again, path_launches["prove_lde_mesh"] = counted(
+                lambda: big.prove(trace, on_stage=clock))
+            steady.append((time.perf_counter() - t0) * 1e3)
+            check(compact(again) == text, "prove-lde-mesh: proofs differ "
+                  "between runs")
+        else:
+            prove(fib, trace, fc, device=DEVICE)
+            torch.cuda.synchronize()
+            plain.append((time.perf_counter() - t0) * 1e3)
+    check_launches("prove_lde_mesh", path_launches["prove_lde_mesh"],
+                   path_shapes["prove_lde_mesh"], split_max)
+    stage_ms = clock.ms()
+    print(f"[prove-lde-mesh] TorchProver(lde_mesh=make_mesh()): fib(64) "
+          f"byte-equal to the fixture (two all_to_all_single, one "
+          f"all_gather); fib(2^{LOG_N}) equal to [prove]'s unmeshed proof "
+          f"(sha256 {prove_sha[:16]}...); first {first_ms:.1f} ms, steady "
+          f"{statistics.median(steady):.1f} ms (median of 2; unmeshed in "
+          f"turns with it {statistics.median(plain):.1f} ms); peak "
+          f"{peak:.2f} GB; launches {AOS} "
+          f"{path_launches['prove_lde_mesh'][AOS]}, {SOA} "
+          f"{path_launches['prove_lde_mesh'][SOA]} ([prove]'s shape); stage "
+          f"ms: " + ", ".join(f"{k} {t:.1f}" for k, t in stage_ms.items()))
+    report["prove_lde_mesh"] = {
+        "first_ms": first_ms, "steady_ms": steady, "stage_ms": stage_ms,
+        "unmeshed_steady_ms": plain,
+        "peak_allocated_gb": peak, "windows": windows,
+        "collectives_fib64": dict(coll64.calls),
+        "collective_ms_fib64": dict(coll64.ms),
+        "launches": path_launches["prove_lde_mesh"],
+        "launches_fib64": path_launches["prove_64_lde_mesh"]}
+    del big, pb, again, trace
+    torch.cuda.empty_cache()
+
+
+def _batch_prove_mesh_phase(fc, fixture_text, mesh, fib, split_max,
+                            path_launches, path_shapes, report):
+    traces = np.asarray([fibonacci_trace(64)] * B_PROVE, dtype=np.uint64)
+    bp = BatchProver(fib, 6, fc, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with Collectives() as coll:
+        proofs, path_launches["batch_prove_mesh"] = counted(
+            lambda: bp.prove(traces, mesh=mesh))
+    runs = [(time.perf_counter() - t0) * 1e3]
+    gather_ms = dict(coll.ms)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(len(proofs) == B_PROVE and all(compact(p) == fixture_text
+                                         for p in proofs),
+          "batch-prove-mesh: a proof differs from the fixture")
+    check(dict(coll.calls) == {"all_gather_object": 1},
+          f"batch-prove-mesh: collectives {dict(coll.calls)}")
+    windows = max(p.opening_proof.fri_proof.pow_witness
+                  for p in proofs) // grind_window(fc) + 1
+    path_shapes["batch_prove_mesh"] = prove_path_shapes(6, fc, fib, B_PROVE,
+                                                        windows)
+    check_launches("batch_prove_mesh", path_launches["batch_prove_mesh"],
+                   path_shapes["batch_prove_mesh"], split_max)
+    del proofs
+    plain = []                          # in turns with the unmeshed batch
+    for meshed in (False, True):
+        t0 = time.perf_counter()
+        bp.prove(traces, mesh=mesh if meshed else None)
+        (runs if meshed else plain).append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(runs)
+    print(f"[batch-prove-mesh] BatchProver.prove(B={B_PROVE} x fib(64), "
+          f"mesh=make_mesh()): every proof byte-equal to the fixture, "
+          f"gathered by one all_gather_object "
+          f"({gather_ms['all_gather_object']:.1f} ms); {ms:.1f} ms per batch "
+          f"(median of 2), {B_PROVE / ms * 1e3:.1f} proofs/s (unmeshed in "
+          f"turns with it {plain[0]:.1f} ms); peak "
+          f"{peak:.2f} GB; "
+          f"launches {AOS} {path_launches['batch_prove_mesh'][AOS]}, {SOA} "
+          f"{path_launches['batch_prove_mesh'][SOA]} ({windows} grind "
+          f"windows, [batch-prove]'s shape)")
+    report["batch_prove_mesh"] = {
+        "B": B_PROVE, "ms_runs": runs, "ms": ms, "unmeshed_ms": plain,
+        "proofs_per_s": B_PROVE / ms * 1e3, "peak_allocated_gb": peak,
+        "windows": windows, "collectives": dict(coll.calls),
+        "collective_ms": gather_ms,
+        "launches": path_launches["batch_prove_mesh"]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="write the measurements here as JSON")
@@ -1815,6 +2242,7 @@ def main(argv=None):
           f"{qps:.0f} queries/s; peak {peak_gb:.2f} GB; stage ms: "
           + ", ".join(f"{k} {t:.1f}" for k, t in stage_ms.items())
           + f"; {devb}")
+    batch_in = (ws, want.clone())       # [multihost] verifies them again
     report["batch"] = {"B": B, "Q": v.Q, "ms_runs": runs, "ms": ms_batch,
                        "queries_per_s": qps, "peak_allocated_gb": peak_gb,
                        "stage_ms": stage_ms,
@@ -1887,6 +2315,8 @@ def main(argv=None):
     big, line, report["prove"] = measure_prove(
         air, trace, fc, "prove", path_launches, path_shapes, split_max)
     report["prove"]["trace_setup_s"] = setup_s
+    prove_sha = hashlib.sha256(compact(big).encode()).hexdigest()
+    report["prove"]["sha256"] = prove_sha
     check(verdict(verify_proof(big, air, fc, device=DEVICE))["ok"],
           "fib(2^20) proof rejected by verify_proof")
     rt = verdict(verify_proof(tamper(big, "merkle_sibling"), air, fc,
@@ -2082,7 +2512,7 @@ def main(argv=None):
     trace = rng.integers(0, P, size=(n_big, 2), dtype=np.uint64)
     big, line, report["prove_rlc"] = measure_prove(
         RlcAir(), trace, fc, "prove_rlc", path_launches, path_shapes,
-        split_max)
+        split_max, profiled=False)
     check(verdict(verify_proof(big, RlcAir(), fc, device=DEVICE))["ok"],
           "RLC 2^20 proof rejected by verify_proof")
     flags = {}
@@ -2107,7 +2537,7 @@ def main(argv=None):
     trace = np.stack([tags, va, tags[perm], va[perm]], axis=1)
     big, line, report["prove_multiset"] = measure_prove(
         MultisetAir(), trace, fc, "prove_multiset", path_launches,
-        path_shapes, split_max)
+        path_shapes, split_max, profiled=False)
     check(verdict(verify_proof(big, MultisetAir(), fc, device=DEVICE))["ok"],
           "multiset 2^20 proof rejected by verify_proof")
     trace[n_big // 3, 3] = (int(trace[n_big // 3, 3]) + 1) % P
@@ -2263,7 +2693,7 @@ def main(argv=None):
     ksetup_s = time.perf_counter() - t0
     kbig, line, report["prove_keccak"] = measure_prove(
         kair, ktrace, fc, "prove_keccak", path_launches, path_shapes,
-        split_max)
+        split_max, profiled=False)
     del ktrace
     cfg_k = derive_config(kbig, fc)
     check(cfg_k == v_keccak.config, "the Keccak proof's shape differs")
@@ -2514,6 +2944,10 @@ def main(argv=None):
                        path_shapes, report, lap)
     composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
                     report, lap)
+    multi_device_phases(proof, fc, cfg, fixture_text, expected, *batch_in,
+                        prove_sha, split_max, path_launches, path_shapes,
+                        report, lap)
+    del batch_in
     # ---- each kernel at each path's shapes
     clk_hz = max_sm_mhz * 1e6
     timed = {}
@@ -2532,7 +2966,7 @@ def main(argv=None):
             timed[kernel, n] = {
                 "states": n,
                 "ms": cuda_ms(lambda: fn(s), 20 if n < 10**5 else 5),
-                "plain_ms": cuda_ms(lambda: plain(s), 3 if n < 10**5 else 1),
+                "plain_ms": once_ms(lambda: plain(s)),
                 "bound_ms": max(ops_ms, bytes_ms),
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                 "sass_bound_ms": max(sass_ms, bytes_ms)}

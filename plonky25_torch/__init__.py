@@ -6,7 +6,10 @@ KeccakAir: 2,633 columns, its constraints as vectors) and multi-stage
 (RlcAir, MultisetAir: a second matrix committed after challenges drawn
 from the trace commitment), one at a time
 (`verify_proof`) or in batches (`parallel.BatchVerifier`), and proves
-them, one at a time (`prover.prove`) or in batches (`prover.BatchProver`).
+them, one at a time (`prover.prove`) or in batches (`prover.BatchProver`);
+`parallel` also splits a proof's queries or a batch over the devices of
+a torch.distributed group (`ShardedVerifier`, `MultiHostBatchVerifier`),
+as `TorchProver(lde_mesh=)` and `BatchProver.prove(mesh=)` split proving.
 Field arithmetic is PyTorch on int64 limb tensors; every Poseidon2
 permutation on a CUDA tensor runs a hand-written kernel: csrc/poseidon2.cu
 on state-major states (the verifier, the transcripts), csrc/poseidon2_soa.cu

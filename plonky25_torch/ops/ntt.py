@@ -6,8 +6,11 @@ here): radix-2 Cooley-Tukey (DIT, natural or bit-reversed input, natural
 output) and Gentleman-Sande (DIF, natural input, bit-reversed output), each
 stage a reshape, two half-slices, one twiddle product and a concatenation.
 An NTT's output is fixed by the mathematics, so these two forms serve every
-length; the JAX package's six-step and four-step forms were TPU layout work
-and give the same values.
+length; the JAX package's six-step form was TPU layout work and gives the
+same values.  The four-step factorization (`ntt_four_step`,
+`coset_ntt_four_step`) is kept because it is what splits over devices: with
+a mesh its exchanges are torch.distributed all-to-alls (the prover's
+`lde_mesh` route).
 
 Tables (root powers, coset points, LDE scales, bit-reversal indices) are
 built on the tensor's device, by doubling products and by
@@ -20,6 +23,7 @@ from __future__ import annotations
 from functools import lru_cache
 
 import torch
+import torch.distributed as dist
 
 from ..constants import GOLDILOCKS_P as P
 from ..fields import gl, gl2
@@ -27,6 +31,7 @@ from ..fields.extension import GL2
 from ..fields.goldilocks import GL
 from ..refimpl.field import Gl
 from ..utils.bits import log2_strict, reverse_bits_len_u32
+from ..utils.tree import tree_map
 
 
 def powers(base: int, n: int, device) -> GL:
@@ -228,3 +233,143 @@ def barycentric_eval_ext(evals: GL, shift: int, z: GL2,
         outs.append(gl2.mul(front, _sum_last(gl2.mul_base(inv_dens,
                                                           weights))))
     return outs[0] if len(outs) == 1 else gl2.concatenate(outs, dim=-1)
+
+
+def coset_lde(evals: GL, log_blowup: int, shift: int = 7) -> GL:
+    """Low-degree extend evaluations on <g_N> to the coset
+    shift * <g_(N * 2^log_blowup)> (the reference's disjoint-domain shift
+    7, two_adic.rs:61-71), natural order."""
+    return coset_lde_pair(evals, 1, log_blowup, shift)
+
+
+def barycentric_eval(evals: GL, shift: int, z: GL) -> GL:
+    """Evaluate the polynomials interpolating `evals` (..., N) on the coset
+    shift * <g_N> at base-field points z (...,), one per leading index:
+
+        p(z) = (z^N - s^N) / (N s^N) * sum_i e_i x_i / (z - x_i),
+        x_i = s g^i.
+
+    One batched inversion; the sum halves the last axis."""
+    n = evals.shape[-1]
+    log_n = log2_strict(n)
+    dev = evals.device
+    xs = coset_points(log_n, shift, dev)                       # (N,)
+    inv_dens = gl.inv(gl.sub(GL(z.lo[..., None], z.hi[..., None]), xs))
+    s = gl.mul(gl.mul(evals, xs), inv_dens)
+    while s.shape[-1] > 1:
+        half = s.shape[-1] // 2
+        s = gl.add(s[..., :half], s[..., half:])
+    s_n = pow(shift, n, P)
+    front = gl.mul(gl.sub(gl.pow_const(z, n), gl.full(z.shape, s_n, dev)),
+                   gl.full((), Gl.inv(n % P * s_n % P), dev))
+    return gl.mul(front, s[..., 0])
+
+
+# ------------------------------------------------------------ four-step
+
+def _swap_last(x: GL) -> GL:
+    """(..., A, B) -> the view (..., B, A)."""
+    return GL(x.lo.transpose(-1, -2), x.hi.transpose(-1, -2))
+
+
+@lru_cache(maxsize=None)
+def _four_step_twiddles(log_a: int, log_b: int, inverse: bool, device) -> GL:
+    """w_N^(i * j) for i in [A], j in [B], N = A * B, GL (A, B); w the
+    two-adic generator of order N (its inverse when `inverse`)."""
+    w = Gl.two_adic_generator(log_a + log_b)
+    if inverse:
+        w = Gl.inv(w)
+    table = powers(w, 1 << (log_a + log_b), device)
+    i = torch.arange(1 << log_a, dtype=torch.int64, device=device)
+    j = torch.arange(1 << log_b, dtype=torch.int64, device=device)
+    return table[i[:, None] * j[None, :]]
+
+
+def ntt_four_step(x: GL, inverse: bool = False) -> GL:
+    """Four-step NTT of a length-A*B vector viewed as an (A, B) matrix,
+    row-major (element k = x[k // B, k % B]): (1) length-A transforms of
+    the columns; (2) the twiddles w_N^(i * j); (3) length-B transforms of
+    the rows; the result M read out transposed, X[j * A + i] = M[i, j]
+    (`four_step_output`).  inverse=True includes the 1/N scale (1/A in
+    step 1, 1/B in step 3).  x: GL (..., A, B) -> M GL (..., A, B)."""
+    log_a, log_b = log2_strict(x.shape[-2]), log2_strict(x.shape[-1])
+    x = _swap_last(ntt(_swap_last(x), inverse))
+    x = gl.mul(_four_step_twiddles(log_a, log_b, inverse, x.device), x)
+    return ntt(x, inverse)
+
+
+def four_step_output(m: GL) -> GL:
+    """The natural-order NTT vector of a four-step result M (..., A, B):
+    X[j * A + i] = M[i, j]."""
+    a, b = m.shape[-2], m.shape[-1]
+    t = _swap_last(m)
+    return GL(t.lo.reshape(*m.shape[:-2], a * b),
+              t.hi.reshape(*m.shape[:-2], a * b))
+
+
+def _exchange(blocks: GL, group) -> GL:
+    """all_to_all over `group` of GL blocks (n, ...): block k goes to rank
+    k, and block k of the result came from rank k.  Both limbs travel in
+    one call."""
+    send = torch.stack([blocks.lo, blocks.hi], dim=1).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return GL(recv[:, 0], recv[:, 1])
+
+
+def _gather_rows(x: GL, group, n: int) -> GL:
+    """all_gather over `group` of each rank's row block (..., A/n, B),
+    concatenated in rank order along the row axis: (..., A, B)."""
+    send = torch.stack([x.lo, x.hi]).contiguous()
+    parts = [torch.empty_like(send) for _ in range(n)]
+    dist.all_gather(parts, send, group=group)
+    full = torch.cat(parts, dim=-2)
+    return GL(full[0], full[1])
+
+
+def coset_ntt_four_step(coeffs: GL, shift: int, log_rows: int = 3,
+                        mesh=None, axis: str = None) -> GL:
+    """coset_ntt(coeffs, shift) through the four-step factorization of its
+    length N = A * B, A = 2^log_rows: natural order out, the same values.
+
+    With `mesh` (a torch.distributed DeviceMesh; `axis` names its
+    dimension, the first by default) each of its n ranks holds A/n rows of
+    the (A, B) view, and the exchanges that the JAX package left to XLA are
+    explicit all-to-alls: rows to column blocks (each rank then holds all
+    A rows of B/n columns) for the length-A transforms and the twiddles,
+    then back to full rows for the length-B transforms.  An all-gather of
+    the row blocks follows, because the prover downstream runs replicated:
+    every rank returns the whole result."""
+    n = coeffs.shape[-1]
+    log_n = log2_strict(n)
+    if not 0 <= log_rows <= log_n:
+        raise ValueError(f"log_rows={log_rows} for a length-{n} transform")
+    a, b = 1 << log_rows, n >> log_rows
+    batch = coeffs.shape[:-1]
+    view = gl.mul(_shift_powers(shift % P, log_n, coeffs.device),
+                  coeffs).reshape(*batch, a, b)
+    if mesh is None:
+        return four_step_output(ntt_four_step(view))
+
+    from ..parallel.mesh import axis_group
+
+    group, rank, ranks = axis_group(mesh, axis)
+    if a % ranks or b % ranks:
+        raise ValueError(f"a ({a}, {b}) four-step view does not split over "
+                         f"{ranks} ranks")
+    ar, bc = a // ranks, b // ranks
+    rows = view[..., rank * ar:(rank + 1) * ar, :]         # (..., A/n, B)
+    # rows -> column blocks: block k (..., A/n, B/n) to rank k
+    cols = _exchange(tree_map(                  # (n, ..., A/n, B/n)
+        lambda t: t.reshape(*batch, ar, ranks, bc).movedim(-2, 0), rows),
+        group)
+    cols = tree_map(lambda t: t.movedim(0, -3).reshape(*batch, a, bc), cols)
+    cols = _swap_last(ntt(_swap_last(cols)))
+    tw = _four_step_twiddles(log_rows, log_n - log_rows, False, coeffs.device)
+    cols = gl.mul(tw[:, rank * bc:(rank + 1) * bc], cols)
+    # column blocks -> full rows: rows [k A/n, (k + 1) A/n) to rank k
+    rows = _exchange(tree_map(                  # (n, ..., A/n, B/n)
+        lambda t: t.reshape(*batch, ranks, ar, bc).movedim(-3, 0), cols),
+        group)
+    rows = tree_map(lambda t: t.movedim(0, -2).reshape(*batch, ar, b), rows)
+    return four_step_output(_gather_rows(ntt(rows), group, ranks))

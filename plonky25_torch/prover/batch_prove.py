@@ -10,14 +10,19 @@ one lane-major Poseidon2 launch, and the PoW grind
 searches all B witnesses in shared windows with each proof's first hit
 kept (the witness order of the sequential grind).  A batch therefore
 launches each kernel as often as one proof does, apart from grind windows:
-the batch grinds until its last proof has found a witness.
+the batch grinds until its last proof has found a witness.  With a mesh
+(`prove(..., mesh=)`) each rank proves its share of the batch this way.
 """
 
 from __future__ import annotations
 
 from typing import List
 
+import numpy as np
+import torch.distributed as dist
+
 from ..air import Air
+from ..parallel.mesh import axis_group
 from ..proof import FriConfig, Proof
 from ..utils.bits import log2_strict
 from .prove import get_prover, trace_columns
@@ -31,11 +36,50 @@ class BatchProver:
         self.base = get_prover(air, log_n, fri_config, device,
                                quotient_eval_chunks)
 
-    def prove(self, traces, on_stage=None) -> List[Proof]:
+    def prove(self, traces, on_stage=None, mesh=None) -> List[Proof]:
         """traces: B row-major traces of identical shape -> B proofs, each
-        identical to what TorchProver.prove gives for that trace."""
-        return self.base.prove_columns(
-            trace_columns(traces, self.base.device), on_stage)
+        identical to what TorchProver.prove gives for that trace.
+
+        With `mesh` (a 1-D torch.distributed DeviceMesh whose ranks all call
+        with the same traces), data-parallel proving: B must be a multiple
+        of the mesh's size, rank r proves traces [r B/n, (r + 1) B/n), and
+        the host arrays of the proofs are all-gathered in rank order before
+        assembly, so every rank returns all B.  Proofs are independent:
+        nothing else crosses ranks."""
+        if mesh is None:
+            return self.base.prove_columns(
+                trace_columns(traces, self.base.device), on_stage)
+        if mesh.device_type != self.base.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a "
+                             f"{self.base.device.type} prover")
+        group, rank, ranks = axis_group(mesh)
+        if len(traces) % ranks:
+            raise ValueError(f"batch {len(traces)} must be a multiple of "
+                             f"the mesh size {ranks}")
+        per = len(traces) // ranks
+
+        def gather(host):
+            parts = [None] * ranks
+            dist.all_gather_object(parts, host, group=group)
+            return _concat(parts)
+
+        return self.base.prove_columns(trace_columns(
+            traces[rank * per:(rank + 1) * per], self.base.device), on_stage,
+            gather)
+
+
+def _concat(parts):
+    """The pulled host arrays of each rank's proofs (prove._pull's dicts,
+    lists and (c0, c1) pairs of arrays with a leading proof axis) joined
+    along that axis; the self-check flags AND-ed."""
+    first = parts[0]
+    if isinstance(first, np.ndarray):
+        return np.concatenate(parts)
+    if isinstance(first, dict):
+        return {k: _concat([p[k] for p in parts]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_concat(list(xs)) for xs in zip(*parts))
+    return all(parts)
 
 
 def prove_batch_on_device(air: Air, traces, fri_config: FriConfig,

@@ -46,8 +46,16 @@ one-shot stage (every transform is per column, the field is exact):
 A knob left at None is worked out per call from the batch size and the
 byte budgets below; `prove_on_device` picks S from the trace's size and
 QUOTIENT_EVAL_BYTES, as the JAX package's prove_on_device does from its
-own budget.  Not ported: `lde_mesh` (multi-device) and `warmup`
-(it forces XLA compilation; eager PyTorch compiles nothing ahead).
+own budget.
+
+With `lde_mesh` (a 1-D torch.distributed DeviceMesh) the LDE commits take
+the JAX prover's multi-device route: the coefficients, zero-padded, go
+through the four-step transform with its rows split over the mesh's ranks
+(`ops.ntt.coset_ntt_four_step`, two all-to-alls and an all-gather), then
+the bit-reversal gather; every rank holds the whole LDE and runs the rest
+of the proof replicated.  The proof bytes are those of the unmeshed route.
+Not ported: `warmup` (it forces XLA compilation; eager PyTorch compiles
+nothing ahead).
 """
 
 from __future__ import annotations
@@ -65,8 +73,9 @@ from ..fields import gl, gl2
 from ..fields.extension import GL2, Ops
 from ..fields.goldilocks import GL
 from ..ops.mmcs import DeviceMerkleTree
-from ..ops.ntt import (_bitrev, barycentric_eval_ext, coset_lde_pair,
-                       coset_lde_to_rev, coset_points, intt, ntt, powers)
+from ..ops.ntt import (_bitrev, barycentric_eval_ext, coset_intt,
+                       coset_lde_pair, coset_lde_to_rev, coset_ntt_four_step,
+                       coset_points, intt, ntt, powers)
 from ..ops.poseidon2 import poseidon2_permute_soa
 from ..proof import (
     BatchOpening,
@@ -134,9 +143,16 @@ class TorchProver:
 
     def __init__(self, air: Air, log_n: int, fri_config: FriConfig,
                  device="cuda", quotient_eval_chunks: int = 1,
-                 quotient_col_groups: int = None):
+                 quotient_col_groups: int = None, lde_mesh=None,
+                 lde_log_rows: int = 3):
         self.device = resolve_device(device)
         check_multistage_consistency(air)
+        if lde_mesh is not None and lde_mesh.device_type != self.device.type:
+            raise ValueError(f"a {lde_mesh.device_type} lde_mesh for a "
+                             f"{self.device.type} prover")
+        # the four-step LDE's mesh and its (2^lde_log_rows, N / 2^...) view
+        self.lde_mesh = lde_mesh
+        self.lde_log_rows = lde_log_rows
         self.air = air
         self.log_n = log_n
         self.fc = fri_config
@@ -207,16 +223,28 @@ class TorchProver:
     # ------------------------------------------------------------ stages
     def _commit_trace_fn(self, cols: GL) -> GL:
         """cols (B, W, H) on <g_H> -> the LDE on 7 * <g_N>, bit-reversed,
-        as columns (B, W, N)."""
-        return coset_lde_to_rev(cols, 1, self.log_max - self.log_n)
+        as columns (B, W, N).  With lde_mesh, the JAX prover's route
+        (:184-194): coefficients, zero padding to N, the four-step coset
+        transform over the mesh, the bit-reversal gather."""
+        if self.lde_mesh is None:
+            return coset_lde_to_rev(cols, 1, self.log_max - self.log_n)
+        coeffs = coset_intt(cols, 1)
+        pad = gl.zeros(cols.shape[:-1] + ((1 << self.log_max)
+                                          - (1 << self.log_n),), self.device)
+        lde = coset_ntt_four_step(
+            gl.concatenate([coeffs, pad], dim=-1), 7,
+            log_rows=self.lde_log_rows, mesh=self.lde_mesh,
+            axis=self.lde_mesh.mesh_dim_names[0])
+        return lde[..., _bitrev(self.log_max, self.device)]
 
     def _commit_matrix(self, cols: GL) -> GL:
         """_commit_trace_fn in `commit_col_chunks` column chunks, each
-        written into one (B, W, N) output (the JAX prover's :166-177)."""
+        written into one (B, W, N) output (the JAX prover's :166-177); in
+        one piece with lde_mesh, as there (:171)."""
         b, w, h = cols.shape
         n = h << (self.log_max - self.log_n)
         k = self.commit_col_chunks or _pieces(b * w * n * 16, LDE_CHUNK_BYTES)
-        if k <= 1 or w < 2 * k:
+        if k <= 1 or w < 2 * k or self.lde_mesh is not None:
             return self._commit_trace_fn(cols)
         return _by_columns(cols, self._commit_trace_fn, n, -(-w // k))
 
@@ -483,10 +511,13 @@ class TorchProver:
         return self.prove_columns(trace_columns([trace], self.device),
                                   on_stage)[0]
 
-    def prove_columns(self, cols: GL, on_stage=None) -> List[Proof]:
+    def prove_columns(self, cols: GL, on_stage=None,
+                      gather=None) -> List[Proof]:
         """Prove the traces cols (B, W, H) in lockstep -> B proofs.
         `on_stage(name)` is called after each stage is enqueued (the
-        hook the chip run times stages with)."""
+        hook the chip run times stages with).  `gather`, if given, maps
+        the host arrays pulled for these B proofs to those of every proof
+        to assemble (the meshed BatchProver's all-gather)."""
         mark = on_stage or (lambda name: None)
         fc = self.fc
         b = cols.shape[0]
@@ -590,7 +621,9 @@ class TorchProver:
             raise AssertionError("PoW self-check failed")
         if not host["low_degree_ok"]:
             raise AssertionError("FRI input not low-degree")
-        proofs = [self._assemble(host, i) for i in range(b)]
+        if gather is not None:
+            host = gather(host)
+        proofs = [self._assemble(host, i) for i in range(len(host["wit"]))]
         mark("queries")
         return proofs
 
@@ -765,19 +798,21 @@ _prover_cache: Dict = {}
 
 def get_prover(air: Air, log_n: int, fri_config: FriConfig, device="cuda",
                quotient_eval_chunks: int = 1,
-               quotient_col_groups: int = None) -> TorchProver:
+               quotient_col_groups: int = None, lde_mesh=None,
+               lde_log_rows: int = 3) -> TorchProver:
     """A cached TorchProver for (AIR class, shape, FRI config, device,
-    memory knobs); a cache hit takes the caller's `air` (its publics)."""
+    memory knobs, LDE mesh and its row split); a cache hit takes the
+    caller's `air` (its publics)."""
     device = resolve_device(device)
     key = (type(air).__module__, type(air).__qualname__, air.name(),
            air.width(), air.stage2_width(), air.num_challenges(), log_n,
            fri_config.log_blowup, fri_config.num_queries,
            fri_config.proof_of_work_bits, str(device), quotient_eval_chunks,
-           quotient_col_groups)
+           quotient_col_groups, lde_mesh, lde_log_rows)
     p = _prover_cache.get(key)
     if p is None:
         p = TorchProver(air, log_n, fri_config, device, quotient_eval_chunks,
-                        quotient_col_groups)
+                        quotient_col_groups, lde_mesh, lde_log_rows)
         _prover_cache[key] = p
     else:
         p.air = air

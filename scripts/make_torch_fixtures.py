@@ -74,7 +74,10 @@ Writes, into tests/fixtures/ (every group by default):
   torch_tests_jax_values.json  (group `jax_values`) JAX results that
       tests/test_torch_verifier.py, test_torch_multistage.py and
       test_torch_prover.py compare with (see jax_values below); 13,638
-      bytes, 202.4 s.
+      bytes, 202.4 s.  Group `parallel` adds, in the same file, the JAX
+      package's multi-device results on 8 virtual CPU devices that
+      tests/test_torch_parallel.py and test_torch_four_step.py compare
+      with (see parallel below).
 
 `chip_smoke.py` and the port's tests read these files, so the port can be
 checked on a machine without JAX.  This script may import plonky25_tpu; the
@@ -99,6 +102,9 @@ sys.path.insert(0, ROOT)
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+# 8 virtual CPU devices for the `parallel` group's meshes (tests/conftest.py
+# gives the JAX tests the same); the other groups use one device
+jax.config.update("jax_num_cpu_devices", 8)
 
 import numpy as np  # noqa: E402
 
@@ -525,6 +531,11 @@ def jax_values():
     out["grind"] = {"base": base, "rest": rest, "found": bool(found),
                     "offset": int(off)}
     path = os.path.join(OUT, "torch_tests_jax_values.json")
+    if os.path.exists(path):            # keep the `parallel` group's values
+        with open(path) as f:
+            kept = json.load(f).get("parallel")
+        if kept is not None:
+            out["parallel"] = kept
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     return [path]
@@ -671,9 +682,163 @@ def composed():
     return [path]
 
 
+def _batch_mesh_traces():
+    """tests/torch_dist_worker.py's batch_traces(): four fib(64) traces,
+    lanes 1 and 3 with one value changed each."""
+    t = np.asarray([fibonacci_trace(64)] * 4, dtype=np.uint64)
+    t[1, 10, 1] = (int(t[1, 10, 1]) + 1) % P
+    t[3, 41, 0] = (int(t[3, 41, 0]) + 5) % P
+    return t
+
+
+def parallel():
+    """The JAX package's multi-device results, on 8 virtual CPU devices,
+    added to torch_tests_jax_values.json under `parallel`:
+
+      sharded     ShardedVerifier over make_mesh(8) on the fixture proof:
+                  Q_pad, the verdict fields, alpha, zeta and the 104 padded
+                  query indices; the verdict of tests/test_sharded.py's
+                  tamper (query 99's quotient sibling, ^4);
+      multihost   MultiHostBatchVerifier on make_host_mesh(n_query=4) (b=2,
+                  q=4) of [fixture, tamper, fixture, fixture] with
+                  tests/test_multihost.py's tamper (query 7's trace sibling,
+                  ^1): the mesh extents, Q_pad, ok and all_ok; BatchVerifier
+                  on the same four;
+      four_step   tests/test_ntt.py's four-step cases: ntt_four_step's
+                  matrix and four_step_output's vector at (8, 16) seed 11,
+                  forward and inverse; the jitted ntt_four_step over
+                  make_mesh(8) at (8, 64) seed 12; coset_ntt_four_step at
+                  256 seed 99 (log_rows 3); barycentric_eval seed 13 (its
+                  evals and points too); coset_lde of 32 seeded values
+                  (seed 14) at log_blowup 1 and 2, shifts 7 and 3;
+      provers     at FriConfig(1, 20, 4) (a 256-witness grind window: the
+                  port proves these on the CPU in its tests), the sha256 of
+                  the compact JSON of TpuProver(lde_mesh=make_mesh(8))
+                  .prove(fib(64)) and of the unmeshed TpuProver's proof, of
+                  each lane of BatchProver.prove(_batch_mesh_traces(),
+                  mesh=make_mesh(4)) and of TpuProver's proof of each of
+                  those traces; and TpuProver(lde_mesh=make_mesh(8))'s
+                  fib(64) at FriConfig(1, 100, 16), the fixture's bytes."""
+    import hashlib
+    import random as _random
+
+    from jax.sharding import NamedSharding, PartitionSpec as Pspec
+
+    from plonky25_tpu.ops import ntt as jntt
+    from plonky25_tpu.parallel import (MultiHostBatchVerifier,
+                                       ShardedVerifier, make_host_mesh,
+                                       make_mesh)
+    from plonky25_tpu.prover.batch_prove import BatchProver
+    from plonky25_tpu.refimpl.field import Gl
+
+    assert len(jax.devices()) >= 8, jax.devices()
+
+    def ints(x):
+        return [int(v) for v in np.asarray(gl.to_u64(x)).reshape(-1)]
+
+    def sha(proof):
+        return hashlib.sha256(json.dumps(proof_to_json(proof), separators=(
+            ",", ":")).encode()).hexdigest()
+
+    out = {}
+    with open(os.path.join(OUT, "proof_fibonacci_refimpl.json")) as f:
+        fixture_text = f.read()
+    proof = proof_from_json(json.loads(fixture_text))
+    cfg = derive_config(proof, FC)
+    air = FibonacciAir()
+    t0 = time.time()
+    sv = ShardedVerifier(air, cfg, make_mesh(8))
+    r = sv.verify(proof)
+    bad = copy.deepcopy(proof)
+    bad.opening_proof.query_openings[99][1].opening_proof[0][0] ^= 4
+    out["sharded"] = {"Q_pad": sv.Q_pad, "fields": _j_fields(r),
+                      "tamper": _verdict(sv.verify(bad))}
+    print(f"  sharded {time.time() - t0:.1f} s")
+    t0 = time.time()
+    bad = copy.deepcopy(proof)
+    bad.opening_proof.query_openings[7][0].opening_proof[2][1] ^= 1
+    lanes = [proof, bad, proof, proof]
+    mv = MultiHostBatchVerifier(air, cfg, make_host_mesh(
+        n_query=4, devices=jax.devices()[:8]))
+    ok, all_ok = mv.verify(lanes)
+    out["multihost"] = {
+        "n_batch": mv.n_batch, "n_query": mv.n_query, "Q_pad": mv.Q_pad,
+        "ok": [bool(b) for b in np.asarray(ok)], "all_ok": bool(all_ok),
+        "batch_verifier": [bool(b) for b in np.asarray(
+            BatchVerifier(air, cfg).verify(lanes))]}
+    print(f"  multihost {time.time() - t0:.1f} s")
+
+    fs = {}
+    rng = _random.Random(11)
+    vec = [rng.randrange(P) for _ in range(8 * 16)]
+    for inverse in (False, True):
+        m = jntt.ntt_four_step(gl.from_u64(vec).reshape(8, 16),
+                               inverse=inverse)
+        fs[f"8x16_{'inverse' if inverse else 'forward'}"] = {
+            "matrix": ints(m), "output": ints(jntt.four_step_output(m))}
+    fs["8x16_input"] = vec
+    rng = _random.Random(12)
+    vec = [rng.randrange(P) for _ in range(8 * 64)]
+    mesh = make_mesh(8)
+    xs = gl.from_u64(vec).reshape(8, 64)
+    xs = gl.GL(*(jax.device_put(a, NamedSharding(mesh, Pspec("q", None)))
+                 for a in xs))
+    fs["8x64_sharded"] = ints(jntt.four_step_output(
+        jax.jit(jntt.ntt_four_step)(xs)))
+    rng = _random.Random(99)
+    coeffs = [rng.randrange(P) for _ in range(256)]
+    fs["coset_256"] = ints(jntt.coset_ntt_four_step(gl.from_u64(coeffs), 7,
+                                                    log_rows=3))
+    rng = _random.Random(13)
+    log_n = 5
+    bary_coeffs = [rng.randrange(P) for _ in range(1 << log_n)]
+    g = Gl.two_adic_generator(log_n)
+    evals = [sum(c * pow(7 * pow(g, k, P) % P, i, P)
+                 for i, c in enumerate(bary_coeffs)) % P
+             for k in range(1 << log_n)]
+    zs = [rng.randrange(P) for _ in range(4)]
+    fs["barycentric"] = {"evals": evals, "z": zs, "shift": 7,
+                         "output": ints(jntt.barycentric_eval(
+                             gl.from_u64(evals), 7, gl.from_u64(zs)))}
+    rng = _random.Random(14)
+    ev = [rng.randrange(P) for _ in range(32)]
+    fs["coset_lde"] = {"evals": ev, "cases": [
+        {"log_blowup": lb, "shift": sh,
+         "output": ints(jntt.coset_lde(gl.from_u64(ev), lb, sh))}
+        for lb, sh in ((1, 7), (2, 7), (1, 3))]}
+    out["four_step"] = fs
+
+    t0 = time.time()
+    fc = FriConfig(1, 20, 4)
+    traces = _batch_mesh_traces()
+    single = TpuProver(air, 6, fc)
+    meshed = TpuProver(air, 6, fc, lde_mesh=make_mesh(8))
+    out["provers"] = {
+        "fri_config": _fc_json(fc),
+        "lde_mesh": sha(meshed.prove(fibonacci_trace(64))),
+        "unmeshed": sha(single.prove(fibonacci_trace(64))),
+        "batch_mesh": [sha(q) for q in BatchProver(air, 6, fc).prove(
+            list(traces), mesh=make_mesh(4))],
+        "single": [sha(single.prove(t)) for t in traces]}
+    assert out["provers"]["lde_mesh"] == out["provers"]["unmeshed"]
+    assert out["provers"]["batch_mesh"] == out["provers"]["single"]
+    p = TpuProver(air, 6, FC, lde_mesh=make_mesh(8)).prove(fibonacci_trace(64))
+    assert sha(p) == hashlib.sha256(fixture_text.encode()).hexdigest()
+    print(f"  provers {time.time() - t0:.1f} s")
+
+    path = os.path.join(OUT, "torch_tests_jax_values.json")
+    with open(path) as f:
+        values = json.load(f)
+    values["parallel"] = out
+    with open(path, "w") as f:
+        json.dump(values, f, indent=1)
+    return [path]
+
+
 GROUPS = {"fibonacci": fibonacci, "multistage": multistage, "mmcs": mmcs,
           "keccak": keccak, "keccak_digest": keccak_digest,
-          "jax_values": jax_values, "attest": attest, "composed": composed}
+          "jax_values": jax_values, "attest": attest, "composed": composed,
+          "parallel": parallel}
 
 
 def main():

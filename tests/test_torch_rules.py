@@ -67,7 +67,12 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     from plonky25_torch.models import FibonacciAir
     from plonky25_torch.ops import poseidon2
     from plonky25_torch.models.fibonacci import fibonacci_trace
-    from plonky25_torch.parallel import BatchVerifier
+    from plonky25_torch.parallel import (BatchVerifier,
+                                         MultiHostBatchVerifier,
+                                         ShardedVerifier, make_batch_mesh,
+                                         make_host_mesh, make_mesh,
+                                         verify_proof_batch_multihost,
+                                         verify_proof_sharded)
     from plonky25_torch.prover import (BatchProver, TorchProver, prove,
                                        prove_batch_on_device, prove_on_device)
     from plonky25_torch.witness import pack_witness
@@ -114,7 +119,19 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
                  lambda: prove_on_device(FibonacciAir(), fibonacci_trace(16),
                                          fc),
                  lambda: ap.derive_gammas(rows),
-                 lambda: ap.build_trace_cols(rows, bundle.gamma)):
+                 lambda: ap.build_trace_cols(rows, bundle.gamma),
+                 # the multi-device entry points refuse before they look
+                 # for a process group (none exists here)
+                 lambda: make_mesh(),
+                 lambda: make_batch_mesh(1, 1),
+                 lambda: make_host_mesh(),
+                 lambda: ShardedVerifier(FibonacciAir(), cfg),
+                 lambda: verify_proof_sharded(proof, FibonacciAir(), fc),
+                 lambda: MultiHostBatchVerifier(FibonacciAir(), cfg),
+                 lambda: verify_proof_batch_multihost([proof] * 2,
+                                                      FibonacciAir(), fc),
+                 lambda: TorchProver(FibonacciAir(), 4, fc,
+                                     lde_mesh=object())):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
