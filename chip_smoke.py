@@ -181,6 +181,17 @@ Phases, one line each; any failure exits non-zero:
                 state count); both kernels, each variant, at
                 N = 1, 2,048, 32,768 and 2^21 and across the crossover
                 (CUDA events, and the kernel's device time alone);
+  [tooling]     plonky25_torch/utils/profiling.py and utils/roofline.py:
+                StageTimer and StageClock around one verification of the
+                fixture (its stages through `on_stage`); measure_throughput
+                of [batch]'s B=2048 x Q=100 BatchVerifier beside [batch]'s
+                queries/s; `trace` of one batch (the file written, the
+                state-major kernel found in it by name, or "not measured"
+                where the profiler saw no kernels); `count_int_ops` of
+                `poseidon2_permute` at 2^10 states and of `coset_ntt` at
+                2^12 x 4 columns, equal on the CPU and the card;
+                `mfu_report` of both kernels at 2^21 states (each share at
+                most 1.0, the roofline share equal to bound_ms / ms);
 then the kernel table line {"kernels": [...]} (launches and times of
 MAIN_PATH, compose_golden, with every path's beside them) and the last
 line {"ok": true, "device": {...}}.  Every path is driven with the launch
@@ -203,8 +214,10 @@ import dataclasses
 import hashlib
 import importlib
 import json
+import math
 import os
 import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -268,6 +281,31 @@ from plonky25_torch.refimpl.field import Gl3  # noqa: E402
 from plonky25_torch.refimpl.keccak import keccak_f_flat  # noqa: E402
 from plonky25_torch.refimpl.verifier import verify as refimpl_verify  # noqa: E402
 from plonky25_torch.utils.bits import log2_ceil  # noqa: E402
+from plonky25_torch.utils.profiling import (  # noqa: E402
+    AOS,
+    SOA,
+    StageClock,
+    StageTimer,
+    StepClock,
+    counted,
+    cuda_ms,
+    device_summary,
+    kernel_device_ms,
+    measure_throughput,
+    once_ms,
+    profile_device_time,
+    trace,
+)
+from plonky25_torch.utils.roofline import (  # noqa: E402
+    P2_BYTES_PER_STATE,
+    P2_OPS,
+    OpCount,
+    clocks_per_state,
+    count_int_ops,
+    int_peak,
+    mfu_report,
+    poseidon2_bound_ms,
+)
 from plonky25_torch.utils.tree import tree_map  # noqa: E402
 from plonky25_torch.verifier import get_verifier, verify_proof  # noqa: E402
 from plonky25_torch.witness import pack_witness  # noqa: E402
@@ -295,35 +333,6 @@ MAIN_PATH = "compose_golden"  # the kernel line's launches and times
 # PERF.md keeps their earlier device times
 UNPROFILED = "device time not profiled in this phase (PERF.md)"
 ARTIFACTS = os.path.join(ROOT, "artifacts")
-AOS, SOA = "poseidon2_permute_w12", "poseidon2_permute_soa"
-# H100 SXM rates (NVIDIA data sheet; CUDA C Programming Guide throughput
-# table for compute capability 9.0): HBM bytes/s, and per SM per clock
-# 64 results of 32-bit integer compare/logic/shift/select or three-input
-# add (ALU pipe), 64 of 32-bit integer multiply-add (FMA pipe), 4 x 32
-# instructions dispatched.  An add, with or without carry, issues on either
-# pipe (IADD3 on the ALU pipe, IMAD.IADD / IMAD.X on the FMA pipe).
-HBM_BYTES_PER_S = 3.35e12
-ALU_PER_CLK, FMA_PER_CLK, DISPATCH_PER_CLK = 64, 64, 128
-# What one permutation must compute (csrc/poseidon2_common.cuh): 736
-# Goldilocks products (x^7 is 4, in 8 x 12 full-round and 22 partial-round
-# S-boxes; 22 x 12 internal-diagonal products) and 1,182 modular adds (118
-# round constants; 9 M_E, each 3 M4 of 14 adds and 4 block sums of 5; 22
-# internal layers of 11 + 12).
-P2_PRODUCTS = 4 * (8 * 12 + 22) + 22 * 12
-P2_ADDS = (8 * 12 + 22) + 9 * (3 * 14 + 4 * 5) + 22 * (11 + 12)
-# The fewest 32-bit instructions each needs, 64-bit values held as two
-# 32-bit words and reduction left lazy.  A product: the four 32x32->64
-# partial products of the 128-bit product (IMAD.WIDE.U32, FMA pipe, the
-# cross-term sums folded into their addends), two adds to carry the cross
-# terms into the top words, four to reduce 128 bits to 64 with
-# 2^64 = 2^32 - 1 and 2^96 = -1 (a three-input add per word, two to fold
-# the last carry): 6 adds.  An add: one two-word add, 2 adds.  Only the
-# partial products are bound to one pipe (FMA); every add may issue on
-# either, and none of the work needs the ALU pipe alone.
-PRODUCT_FMA, PRODUCT_ADDS, ADD_ADDS = 4, 6, 2
-P2_OPS = {"fma_pipe": P2_PRODUCTS * PRODUCT_FMA, "alu_pipe": 0,
-          "either_pipe": P2_PRODUCTS * PRODUCT_ADDS + P2_ADDS * ADD_ADDS}
-P2_OPS["total"] = P2_OPS["fma_pipe"] + P2_OPS["either_pipe"]
 # ALU-pipe SASS instructions per state of the first kernels, one thread
 # per state, every operation corrected to its canonical value (PERF.md,
 # the first kernels' build on the card): printed beside this build's counts.
@@ -349,83 +358,7 @@ def nvidia_smi(fields):
     return out.strip()
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of fn() over `reps` runs, from CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def once_ms(fn):
-    """Device time of one call of fn(), no warm-up, from CUDA events: the
-    [timing] phase's plain versions, each already run at its shape by the
-    [kernel] and [kernel-soa] comparisons (dispatch-bound: 0.2-0.4 s a
-    call at any size below 10^5 states, PERF.md)."""
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end)
-
-
-WRAPPERS = {AOS: p2.poseidon2_permute, SOA: p2.poseidon2_permute_soa}
-
-
-def counted(fn):
-    """Run fn() with both kernels' launch counts set to 0 just before it;
-    return (fn's result, {kernel: launches, kernel.split: launches of the
-    split variant, kernel.whole: of the other} read just after)."""
-    torch.cuda.synchronize()
-    for w in WRAPPERS.values():
-        w.launches = w.launches_split = w.launches_whole = 0
-    out = fn()
-    torch.cuda.synchronize()
-    got = {}
-    for k, w in WRAPPERS.items():
-        got[k] = w.launches
-        got[k + ".split"] = w.launches_split
-        got[k + ".whole"] = w.launches_whole
-    return out, got
-
-
-class StageClock:
-    """CUDA events recorded at each stage boundary (the paths' on_stage)."""
-
-    def __init__(self):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self.events = [("start", ev)]
-
-    def __call__(self, name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self.events.append((name, ev))
-
-    def ms(self):
-        torch.cuda.synchronize()
-        return {name: self.events[i][1].elapsed_time(ev)
-                for i, (name, ev) in enumerate(self.events[1:])}
-
-
 # ------------------------------------------------------------ build
-
-def clocks_per_state(mix):
-    """SM clocks one state costs at the issue rates above, for a mix of
-    instructions per state: "alu_pipe" and "fma_pipe" count those bound to
-    one pipe, "total" all of them (with those that may issue on either)."""
-    return max(mix["alu_pipe"] / ALU_PER_CLK, mix["fma_pipe"] / FMA_PER_CLK,
-               mix["total"] / DISPATCH_PER_CLK)
-
 
 def variant_of(function):
     """"split" or "whole" for a kernel's mangled __global__ name."""
@@ -691,62 +624,6 @@ def compact(proof):
     return json.dumps(proof_to_json(proof), separators=(",", ":"))
 
 
-def profile_device_time(fn, cpu=False):
-    """(device ms, kernel count, {name: (ms, count)}) of one run of fn,
-    from torch.profiler; None where the profiler saw no CUDA kernels.  A
-    path's run traces CUDA activity alone: on a run of 323k kernels that
-    gave the device time and kernel count of tracing CPU and CUDA activity
-    in about half the time (scripts/profiler_cost.py, PERF.md).  `cpu`
-    traces both, as kernel_device_ms does (the per-kernel timings keep
-    their earlier method).  Either way a profile has missed the kernels of
-    five 2^21-state launches; the timings then say "not measured"."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    with profile(activities=acts, acc_events=True) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", 0) or 0
-        if t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[ev.key] = (t / 1e3, ev.count)
-    if not kernels:
-        return None
-    total = sum(t for t, _ in kernels.values())
-    count = sum(c for _, c in kernels.values())
-    return total, count, kernels
-
-
-def kernel_device_ms(fn, reps):
-    """Mean device time of the Poseidon2 kernel launched by fn(), over
-    `reps` calls, from torch.profiler: unlike CUDA events around the
-    calls, it leaves out the host time of the wrapper, which bounds the
-    event time of a small launch.  None where the profiler saw no kernel."""
-    fn()
-    prof = profile_device_time(lambda: [fn() for _ in range(reps)], cpu=True)
-    mine = [(t, c) for name, (t, c) in (prof[2].items() if prof else ())
-            if "poseidon2" in name]
-    return sum(t for t, _ in mine) / sum(c for _, c in mine) if mine else None
-
-
-def device_summary(prof, wall_ms):
-    if not prof:
-        return "device time not measured (profiler saw no kernels)", None
-    p2_ms = {k: sum(t for name, (t, _) in prof[2].items() if tag in name)
-             for k, tag in ((AOS, "w12"), (SOA, "soa"))}
-    text = (f"{prof[0]:.1f} ms device time in {prof[1]} kernels "
-            f"(busy {100 * prof[0] / wall_ms:.0f}% of {wall_ms:.1f} ms), "
-            f"Poseidon2 state-major {p2_ms[AOS]:.1f} ms, lane-major "
-            f"{p2_ms[SOA]:.1f} ms")
-    return text, {"device_ms": prof[0], "device_kernels": prof[1],
-                  "busy_share": prof[0] / wall_ms, "poseidon2_ms": p2_ms,
-                  "top_kernels": sorted(([k, t, c] for k, (t, c)
-                                         in prof[2].items()),
-                                        key=lambda x: -x[1])[:12]}
-
-
 def verdict(r):
     """The five verdict flags of a VerifyResult, as bools."""
     return {k: bool(getattr(r, k)) for k in
@@ -872,50 +749,6 @@ def keccak_traces(inputs, b):
 
 
 # ------------------------------------------------------------ attestation
-
-class StepClock:
-    """The attestation entry points' on_step hook: wall ms (the device
-    synchronised at each step's end), kernel launches, by variant, and
-    peak device memory of each step since the previous one (the peak
-    statistics reset at every step)."""
-
-    def __init__(self):
-        self.steps = {}
-        self.start()
-
-    def start(self):
-        """Restart the clock, the counts (call it where the counts were
-        set to 0: inside `counted`) and the peak; returns the hook."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        self.t, self.last = time.perf_counter(), self._counts()
-        return self
-
-    @staticmethod
-    def _counts():
-        return {k + suf: getattr(w, "launches" + suf.replace(".", "_"))
-                for k, w in WRAPPERS.items()
-                for suf in ("", ".split", ".whole")}
-
-    def __call__(self, name):
-        torch.cuda.synchronize()
-        now, counts = time.perf_counter(), self._counts()
-        self.steps[name] = {
-            "ms": (now - self.t) * 1e3,
-            "launches": {k: counts[k] - self.last[k] for k in counts},
-            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
-        torch.cuda.reset_peak_memory_stats()
-        self.t, self.last = now, counts
-
-    def peak_gb(self):
-        return max(v["peak_allocated_gb"] for v in self.steps.values())
-
-    def text(self):
-        return ", ".join(
-            f"{k} {v['ms']:.1f} ms ({v['launches'][AOS]}/"
-            f"{v['launches'][SOA]}, peak {v['peak_allocated_gb']:.2f} GB)"
-            for k, v in self.steps.items())
-
 
 def chain_groups(rows):
     """attest_program.build_trace_cols's chains: rows grouped from each
@@ -1994,6 +1827,118 @@ def _batch_prove_mesh_phase(fc, fixture_text, mesh, fib, split_max,
         "launches": path_launches["batch_prove_mesh"]}
 
 
+def tooling_phase(proof, fc, cfg, verify_batch, want, batch_qps, at_2_21,
+                  sms, clk_hz, report):
+    """[tooling]: utils/profiling.py and utils/roofline.py on the card."""
+    # StageTimer (wall, synchronised) and StageClock (CUDA events at the
+    # stage boundaries) around one verification of the fixture
+    v = get_verifier(FibonacciAir(), cfg, DEVICE)
+    timer, clock = StageTimer(), StageClock()
+    with timer.stage("verify_proof") as h:
+        h["result"] = r = verify_proof(proof, FibonacciAir(), fc,
+                                       device=DEVICE)
+    clock("verify_proof")
+    with timer.stage("pack_witness") as h:
+        h["result"] = w = pack_witness(proof, cfg, DEVICE)
+    clock("pack_witness")
+    with timer.stage("stages") as h:
+        h["result"] = rs = v.verify_witnesses(
+            tree_map(lambda a: a[None], w), clock)
+    check(bool(r.ok) and bool(rs["ok"][0]), "[tooling] fixture rejected")
+    wall, dev = timer.summary(), clock.ms()
+    stages = ["verify_proof", "pack_witness", "transcript", "merkle",
+              "reduced_openings", "fold", "final"]
+    check(list(dev) == stages and all(t >= 0 for t in dev.values())
+          and all(x["n"] == 1 for x in wall.values()),
+          f"[tooling] stage clock {dev} or timer {wall} malformed")
+    # measure_throughput of the B x Q batch, beside [batch]'s own figure
+    n_q = B * v.Q
+    thr = measure_throughput(verify_batch, (), n_items=n_q, iters=3)
+    # a torch.profiler trace of one batch, written under build/trace
+    logdir = os.path.join(ROOT, "build", "trace")
+    shutil.rmtree(logdir, ignore_errors=True)
+    with trace(logdir):
+        out, launched = counted(verify_batch)
+    check(torch.equal(out, want), "[tooling] traced batch verdicts differ")
+    files = [os.path.join(logdir, f) for f in os.listdir(logdir)
+             if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"[tooling] trace files {files}")
+    with open(files[0]) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = Counter(e.get("name", "") for e in events
+                      if e.get("cat") == "kernel")
+    aos_in_trace = sum(c for k, c in kernels.items() if "poseidon2_w12" in k)
+    split_in_trace = sum(c for k, c in kernels.items()
+                         if "poseidon2_w12_split" in k)
+    if kernels:
+        check(aos_in_trace > 0, f"[tooling] the trace's {sum(kernels.values())}"
+              f" kernels hold no state-major Poseidon2 kernel")
+        found = (f"{aos_in_trace} of the batch's {launched[AOS]} state-major"
+                 f" launches in it ({split_in_trace} of "
+                 f"{launched[AOS + '.split']} split)"
+                 + ("" if aos_in_trace == launched[AOS]
+                    else ", the profiler missed the rest"))
+    else:
+        found = ("the state-major kernel not measured (the profiler saw no "
+                 "kernels)")
+    # the same count on the CPU and on the card
+    rng = np.random.default_rng(0x7001)
+    states = rng.integers(0, P, size=(1 << 10, 12), dtype=np.uint64)
+    cols = rng.integers(0, P, size=(4, 1 << 12), dtype=np.uint64)
+    counts = {}
+    for d in ("cpu", DEVICE):
+        sd, cd = gl.from_u64(states, d), gl.from_u64(cols, d)
+        ntt_ops.coset_ntt(cd, 7)        # its tables, cached per device
+        counts[d] = {
+            "poseidon2_permute": count_int_ops(p2.poseidon2_permute, sd),
+            "coset_ntt": count_int_ops(ntt_ops.coset_ntt, cd, 7)}
+    check(counts["cpu"] == counts[DEVICE], f"[tooling] op counts differ: "
+          f"cpu {counts['cpu']}, {DEVICE} {counts[DEVICE]}")
+    per_state = counts[DEVICE]["poseidon2_permute"]
+    check(per_state.int_ops == (1 << 10) * P2_OPS["total"],
+          f"[tooling] permutation counted {per_state}")
+    # MFU and roofline share of both kernels at 2^21 states
+    peak = int_peak(sms, clk_hz)
+    per_item = OpCount(per_state.int_ops / (1 << 10), per_state.exact)
+    mfu = {k: mfu_report(k, per_item, (1 << 21) / (at_2_21[k]["ms"] / 1e3),
+                         peak=peak, bytes_per_item=P2_BYTES_PER_STATE)
+           for k in (AOS, SOA)}
+    for k, m in mfu.items():
+        check(m["mfu"] <= 1.0 and m["roofline_share"] <= 1.0,
+              f"[tooling] {k} above its roofline: {m}")
+        check(math.isclose(m["roofline_share"], at_2_21[k]["bound_ms"]
+                           / at_2_21[k]["ms"], rel_tol=1e-9),
+              f"[tooling] {k}: mfu_report's roofline differs from bound_ms")
+    size_mb = os.path.getsize(files[0]) / 1e6
+    print(f"[tooling] StageTimer wall ms: "
+          + ", ".join(f"{k} {x['mean_ms']:.1f}" for k, x in wall.items())
+          + "; StageClock device ms: "
+          + ", ".join(f"{k} {t:.1f}" for k, t in dev.items())
+          + f"; measure_throughput of BatchVerifier B={B} x Q={v.Q}: "
+          f"{thr['items_per_sec']:.0f} queries/s ({thr['sec_per_call'] * 1e3:.1f}"
+          f" ms per batch; [batch] {batch_qps:.0f} queries/s in this run); "
+          f"trace of one batch: {os.path.relpath(files[0], ROOT)} "
+          f"({size_mb:.1f} MB, {sum(kernels.values())} kernels), {found}; "
+          f"count_int_ops equal on cpu and {DEVICE}: poseidon2_permute at "
+          f"2^10 states {per_state.int_ops:.0f} (exact {per_state.exact}), "
+          f"coset_ntt at 2^12 x 4 {counts[DEVICE]['coset_ntt'].int_ops:.0f} "
+          f"(exact {counts[DEVICE]['coset_ntt'].exact}); at 2^21 states, mfu"
+          f" / roofline share against {peak:.4g} u32 ops/s: "
+          + ", ".join(f"{k} {m['mfu']:.3f} / {m['roofline_share']:.3f}"
+                      for k, m in mfu.items()))
+    report["tooling"] = {
+        "stage_timer": wall, "stage_clock_ms": dev, "throughput": thr,
+        "batch_queries_per_s": batch_qps, "trace_file_mb": size_mb,
+        "trace_kernels": sum(kernels.values()),
+        "trace_poseidon2_w12": aos_in_trace if kernels else None,
+        "trace_poseidon2_names": {k: c for k, c in kernels.items()
+                                  if "poseidon2" in k},
+        "batch_launches": launched,
+        "int_ops": {d: {k: dataclasses.asdict(c) for k, c in cs.items()}
+                    for d, cs in counts.items()},
+        "mfu": mfu}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="write the measurements here as JSON")
@@ -2243,6 +2188,7 @@ def main(argv=None):
           + ", ".join(f"{k} {t:.1f}" for k, t in stage_ms.items())
           + f"; {devb}")
     batch_in = (ws, want.clone())       # [multihost] verifies them again
+    want_batch = batch_in[1]            # and [tooling]
     report["batch"] = {"B": B, "Q": v.Q, "ms_runs": runs, "ms": ms_batch,
                        "queries_per_s": qps, "peak_allocated_gb": peak_gb,
                        "stage_ms": stage_ms,
@@ -2959,17 +2905,14 @@ def main(argv=None):
             fn, plain = ((p2.poseidon2_permute_soa, p2.poseidon2_permute_soa_plain)
                          if lane_major else
                          (p2.poseidon2_permute, p2.poseidon2_permute_plain))
-            ops_ms = n * clocks_per_state(P2_OPS) / (sms * clk_hz) * 1e3
-            sass_ms = (n * clocks_per_state(mixes[kernel]) / (sms * clk_hz)
-                       * 1e3)
-            bytes_ms = n * 12 * 2 * 8 * 2 / HBM_BYTES_PER_S * 1e3
+            bound, bound_by = poseidon2_bound_ms(n, sms, clk_hz)
             timed[kernel, n] = {
                 "states": n,
                 "ms": cuda_ms(lambda: fn(s), 20 if n < 10**5 else 5),
                 "plain_ms": once_ms(lambda: plain(s)),
-                "bound_ms": max(ops_ms, bytes_ms),
-                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                "sass_bound_ms": max(sass_ms, bytes_ms)}
+                "bound_ms": bound, "bound_by": bound_by,
+                "sass_bound_ms": poseidon2_bound_ms(
+                    n, sms, clk_hz, mixes[kernel])[0]}
             del s
             torch.cuda.empty_cache()
         return timed[kernel, n]
@@ -3070,6 +3013,10 @@ def main(argv=None):
         })
     report["kernels"] = kernel_rows
     lap("timing")
+    tooling_phase(proof, fc, cfg, verify_batch, want_batch,
+                  report["batch"]["queries_per_s"], same_n, sms, clk_hz,
+                  report)
+    lap("tooling")
     report["seconds"] = time.perf_counter() - t_start
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

@@ -15,13 +15,19 @@ permutation on a CUDA tensor runs a hand-written kernel: csrc/poseidon2.cu
 on state-major states (the verifier, the transcripts), csrc/poseidon2_soa.cu
 on lane-major ones (the prover's Merkle trees and PoW grind).  `attest`
 proves, in one 620-column VerifierAir STARK, that a proof verified, and
-checks such attestations (depth 1), verifying and proving through the
-port or through the int oracle of `refimpl`.  Entry points take `device=`
-("cuda" by default) and never move to the CPU on their own.
+checks such attestations (depth 1); `attest_composed` and
+`attest_attestation` prove such a verification of an attestation's own
+STARK (depth 2), verifying and proving through the port or through the
+int oracle of `refimpl`.  `utils.profiling` times stages and traces runs
+(CUDA events, torch.profiler); `utils.roofline` counts a function's
+integer work and gives the H100's bound for it.  Entry points take
+`device=` ("cuda" by default) and never move to the CPU on their own.
 
 The package imports torch, numpy and the standard library only: nothing of
 JAX and nothing of plonky25_tpu, whose modules it mirrors by name.
 """
+
+__version__ = "0.1.0"
 
 from .proof import (  # noqa: F401
     FriConfig,

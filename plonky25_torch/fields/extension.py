@@ -12,6 +12,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..constants import (DTH_ROOT, GOLDILOCKS_P as P, TWO_ADIC_GENERATOR_32,
+                         TWO_ADICITY)
 from ..utils.tree import tree_map
 from . import goldilocks as gl
 from .goldilocks import GL
@@ -100,6 +102,10 @@ def square(x: GL2) -> GL2:
     return mul(x, x)
 
 
+def mul_add(x: GL2, y: GL2, z: GL2) -> GL2:
+    return add(mul(x, y), z)
+
+
 def inv(x: GL2) -> GL2:
     """1/x = conj(x) / norm(x), norm = c0^2 - 7 c1^2 (extension.rs:304-321)."""
     n = gl.sub(gl.square(x.c0), _mul_w(gl.square(x.c1)))
@@ -107,11 +113,21 @@ def inv(x: GL2) -> GL2:
     return GL2(gl.mul(x.c0, scalar), gl.mul(gl.neg(x.c1), scalar))
 
 
+def div(x: GL2, y: GL2) -> GL2:
+    """inv(y) * x; so x / 0 == 0, as in the JAX package."""
+    return mul(inv(y), x)
+
+
 def exp_power_of_2(x: GL2, power_log: int) -> GL2:
     """x^(2^power_log)."""
     for _ in range(power_log):
         x = square(x)
     return x
+
+
+def frobenius(x: GL2) -> GL2:
+    """x -> x^p: scale c1 by dth_root = p-1 (extension.rs:198-230)."""
+    return GL2(x.c0, gl.mul(x.c1, gl.full(x.c1.shape, DTH_ROOT, x.c1.device)))
 
 
 def select(mask, x: GL2, y: GL2) -> GL2:
@@ -130,6 +146,27 @@ def monomial(exponent: int, shape, device) -> GL2:
     if exponent == 1:
         return GL2(gl.zeros(shape, device), gl.ones(shape, device))
     raise ValueError("EXT_DEGREE == 2 supports monomials 0 and 1 only")
+
+
+def two_adic_generator_int(bits: int) -> int:
+    """Host-side base-field two-adic generator value."""
+    if not 0 <= bits <= TWO_ADICITY:
+        raise ValueError(f"bits {bits} outside [0, {TWO_ADICITY}]")
+    return pow(TWO_ADIC_GENERATOR_32, 1 << (TWO_ADICITY - bits), P)
+
+
+def ext_two_adic_generator_int(bits: int) -> tuple:
+    """GF(p^2) two-adic generator as (c0, c1) host ints; the extension
+    field's two-adicity is 33.  For bits == 33 it is plonky3's
+    ext_two_adic_generator constant (0, 15659105665374529263), a square
+    root of g_32 / 7 on the X axis, as in the JAX package (the reference's
+    `32 - bits` underflows there; refimpl.field.Gl2.two_adic_generator
+    keeps the oracle's value, as the JAX oracle does)."""
+    if not 0 <= bits <= TWO_ADICITY + 1:
+        raise ValueError(f"bits {bits} outside [0, {TWO_ADICITY + 1}]")
+    if bits == TWO_ADICITY + 1:
+        return (0, 15659105665374529263)
+    return (two_adic_generator_int(bits), 0)
 
 
 def broadcast_to(x: GL2, shape) -> GL2:
@@ -273,6 +310,9 @@ def _flip0(x: GL2) -> GL2:
 def concatenate(elems, dim=0) -> GL2:
     return GL2(gl.concatenate([e.c0 for e in elems], dim),
                gl.concatenate([e.c1 for e in elems], dim))
+
+
+concat = concatenate    # the JAX package's name
 
 
 def power_stack(alpha: GL2, n: int) -> GL2:

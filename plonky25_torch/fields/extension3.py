@@ -54,6 +54,14 @@ def from_base(x: GL) -> GL3:
     return GL3(x, z, z)
 
 
+def from_u64_triple(c0, c1, c2, device) -> GL3:
+    return GL3(*(gl.from_u64(c, device) for c in (c0, c1, c2)))
+
+
+def to_u64_triple(x: GL3):
+    return tuple(gl.to_u64(c) for c in x)
+
+
 def add(x: GL3, y: GL3) -> GL3:
     return GL3(*(gl.add(a, b) for a, b in zip(x, y)))
 

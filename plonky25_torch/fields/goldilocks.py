@@ -10,7 +10,8 @@ stays inside the signed int64 range: no step relies on signed overflow.
 as the arithmetic shift and the two's-complement AND on every platform.)
 Every op returns canonical values (in [0, p)), so equality is a limb
 compare, as in plonky25_tpu/fields/goldilocks.py, whose public API this
-module mirrors.
+module mirrors.  JAX's limb dtype `U32` (jnp.uint32) has no counterpart:
+the limbs are int64 tensors, for the reason above; `MASK32` is its mask.
 
 Identities used by the reduction (p = 2^64 - 2^32 + 1):
     2^64 ≡ 2^32 - 1 =: EPSILON  (mod p)
@@ -28,6 +29,7 @@ from ..constants import GOLDILOCKS_P as P
 
 M32 = 0xFFFFFFFF
 M16 = 0xFFFF
+MASK32 = M32
 
 
 class GL(NamedTuple):
@@ -70,6 +72,12 @@ def full(shape, value: int, device) -> GL:
     value %= P
     return GL(torch.full(shape, value & M32, dtype=torch.int64, device=device),
               torch.full(shape, value >> 32, dtype=torch.int64, device=device))
+
+
+def constant(value: int, device) -> GL:
+    """Scalar constant, reduced mod p (reference p3_constant,
+    p3/mod.rs:51-56)."""
+    return full((), value, device)
 
 
 def from_u64(values, device) -> GL:
@@ -185,6 +193,14 @@ def square(a: GL) -> GL:
     return mul(a, a)
 
 
+def mul_add(a: GL, b: GL, c: GL) -> GL:
+    return add(mul(a, b), c)
+
+
+def is_zero(a: GL) -> torch.Tensor:
+    return (a.lo == 0) & (a.hi == 0)
+
+
 def double(a: GL) -> GL:
     return add(a, a)
 
@@ -246,6 +262,11 @@ def inv(a: GL) -> GL:
     a31 = mul(square(a30), a1)                  # a^(2^31-1)
     a32 = mul(square(a31), a1)                  # a^(2^32-1)
     return mul(_sqn(a31, 33), a32)              # a^((2^31-1)*2^33 + 2^32-1)
+
+
+def div(a: GL, b: GL) -> GL:
+    """a * inv(b); so a / 0 == 0, as in the JAX package."""
+    return mul(a, inv(b))
 
 
 def pow_u32(base_int: int, exp: torch.Tensor, nbits: int) -> GL:

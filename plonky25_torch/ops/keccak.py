@@ -101,6 +101,11 @@ def keccak_f(state: U64Lanes) -> U64Lanes:
     return state
 
 
+# the JAX package's jitted name: eager PyTorch compiles nothing, so it is
+# the same function
+keccak_f_jit = keccak_f
+
+
 def from_u64(flat, device) -> U64Lanes:
     """Host: (..., 25) array-like of u64 ints -> U64Lanes on `device`."""
     a = np.asarray(flat, dtype=np.uint64)

@@ -59,6 +59,10 @@ class DeviceMerkleTree:
         """(..., 4)."""
         return self.levels[-1][..., 0]
 
+    def root_host(self) -> list:
+        """The root as four Python ints (one tree: no leading axes)."""
+        return [int(v) for v in gl.to_u64_np(self.root)]
+
     def open_paths(self, idx: torch.Tensor) -> GL:
         """idx (..., Q) int64 -> sibling digests (..., Q, depth, 4)."""
         return _open_paths(self.levels, idx)

@@ -7,7 +7,8 @@ output) and Gentleman-Sande (DIF, natural input, bit-reversed output), each
 stage a reshape, two half-slices, one twiddle product and a concatenation.
 An NTT's output is fixed by the mathematics, so these two forms serve every
 length; the JAX package's six-step form was TPU layout work and gives the
-same values.  The four-step factorization (`ntt_four_step`,
+same values, so its threshold `SIX_STEP_MIN_LOG` (a TPU layout choice) has
+no counterpart.  The four-step factorization (`ntt_four_step`,
 `coset_ntt_four_step`) is kept because it is what splits over devices: with
 a mesh its exchanges are torch.distributed all-to-alls (the prover's
 `lde_mesh` route).

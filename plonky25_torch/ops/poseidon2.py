@@ -31,10 +31,22 @@ the Pallas `_soa_*` helpers on a list of 12 lane arrays) and the kernel
 csrc/poseidon2_soa.cu, which replaces the Pallas kernel of
 poseidon2_pallas.py:219; `poseidon2_permute_soa.launches` (and by variant)
 is its own count.
+
+`observe_states(cb)` lets a caller see the work of both wrappers whatever
+runs it: inside its block every call of either is entered as
+`with cb(n_states):`, around the plain version or the launch
+(utils/roofline.py's count_int_ops charges the permutation's work model
+there).  `poseidon2_permute_auto` is the JAX package's name for the same
+dispatch as `poseidon2_permute`.  JAX's `poseidon2_permute_jit` (a jitted
+alias) and `PALLAS_DISABLED` (the P25_DISABLE_PALLAS environment switch,
+read at import, that sends the TPU to the plain path) have no counterpart:
+PyTorch runs eagerly, so there is nothing to compile, and the port reads no
+environment and has no switch around its kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -115,6 +127,35 @@ def poseidon2_permute_plain(state: GL) -> GL:
     for r in range(ROUND_F_BEGIN, ROUND_F_END):
         state = _matmul_external(_sbox(gl.add(state, rc_ext[r])))
     return state
+
+
+# ------------------------------------------------------------ observers
+
+_observers = []     # callbacks of the open observe_states blocks
+
+
+@contextlib.contextmanager
+def observe_states(cb):
+    """Within the block, enter `cb(n)` (a context manager) around the work
+    of every call of poseidon2_permute and poseidon2_permute_soa on n
+    states, on either device."""
+    _observers.append(cb)
+    try:
+        yield
+    finally:
+        _observers.remove(cb)
+
+
+def _observed(state: GL):
+    """The observers' contexts for one call on `state` (12 lanes a state,
+    on either axis)."""
+    if not _observers:
+        return contextlib.nullcontext()
+    n = state.lo.numel() // WIDTH
+    stack = contextlib.ExitStack()
+    for cb in list(_observers):
+        stack.enter_context(cb(n))
+    return stack
 
 
 # ------------------------------------------------------------ the kernel
@@ -199,11 +240,18 @@ def _launch(wrapper, built: build.Built, entry: str, state: GL,
 def poseidon2_permute(state: GL) -> GL:
     """Permute a GL of shape (..., 12): the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors (see the module docstring)."""
-    if state.lo.device.type == "cpu" and state.hi.device.type == "cpu":
-        return poseidon2_permute_plain(state)
-    check_kernel_input(state)
-    return _launch(poseidon2_permute, kernel_library(),
-                   "p25_poseidon2_permute_w12", state)
+    with _observed(state):
+        if state.lo.device.type == "cpu" and state.hi.device.type == "cpu":
+            return poseidon2_permute_plain(state)
+        check_kernel_input(state)
+        return _launch(poseidon2_permute, kernel_library(),
+                       "p25_poseidon2_permute_w12", state)
+
+
+def poseidon2_permute_auto(state: GL) -> GL:
+    """The JAX package's backend-aware entry: here the same dispatch as
+    poseidon2_permute, by device alone (no size threshold, no switch)."""
+    return poseidon2_permute(state)
 
 
 def _poseidon2_permute_variant(state: GL, split: bool) -> GL:
@@ -292,11 +340,12 @@ def soa_kernel_library() -> build.Built:
 def poseidon2_permute_soa(planes: GL) -> GL:
     """Permute lane-major planes (12, ...): the plain version for CPU
     tensors, the CUDA kernel csrc/poseidon2_soa.cu for CUDA tensors."""
-    if planes.lo.device.type == "cpu" and planes.hi.device.type == "cpu":
-        return poseidon2_permute_soa_plain(planes)
-    check_kernel_input(planes, lane_axis=0)
-    return _launch(poseidon2_permute_soa, soa_kernel_library(),
-                   "p25_poseidon2_permute_soa", planes)
+    with _observed(planes):
+        if planes.lo.device.type == "cpu" and planes.hi.device.type == "cpu":
+            return poseidon2_permute_soa_plain(planes)
+        check_kernel_input(planes, lane_axis=0)
+        return _launch(poseidon2_permute_soa, soa_kernel_library(),
+                       "p25_poseidon2_permute_soa", planes)
 
 
 def _poseidon2_permute_soa_variant(planes: GL, split: bool) -> GL:

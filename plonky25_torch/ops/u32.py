@@ -4,8 +4,9 @@ src/common/u32/gadgets/*, as plain integer ops).
 
 PyTorch on the CPU has no add, sub, shift or compare for uint32, so a u32
 value lives in an int64 tensor, in [0, 2^32), and every op masks its result
-back into that range.  No intermediate leaves the signed int64 range: the
-one product that could (x * y in `mul_add_u32`) is taken on 16-bit halves.
+back into that range (so JAX's dtype name `U32` has no counterpart).  No
+intermediate leaves the signed int64 range: the one product that could
+(x * y in `mul_add_u32`) is taken on 16-bit halves.
 u64 values are (lo, hi) pairs of such tensors.  Inputs may be Python ints,
 lists, numpy arrays or tensors; results keep the device of a tensor input.
 """

@@ -12,6 +12,9 @@ kept (the witness order of the sequential grind).  A batch therefore
 launches each kernel as often as one proof does, apart from grind windows:
 the batch grinds until its last proof has found a witness.  With a mesh
 (`prove(..., mesh=)`) each rank proves its share of the batch this way.
+
+JAX's `BatchProver.warmup` is not ported: it compiled the vmapped XLA
+modules ahead of time, and PyTorch runs eagerly.
 """
 
 from __future__ import annotations

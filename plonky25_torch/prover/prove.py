@@ -48,6 +48,11 @@ byte budgets below; `prove_on_device` picks S from the trace's size and
 QUOTIENT_EVAL_BYTES, as the JAX package's prove_on_device does from its
 own budget.
 
+`TpuProver` is `TorchProver` here.  Its `warmup` is not ported: it
+compiled every XLA module ahead of time, and PyTorch runs eagerly, with
+nothing to compile but the two kernels (built at their first launch,
+ops/build.py).
+
 With `lde_mesh` (a 1-D torch.distributed DeviceMesh) the LDE commits take
 the JAX prover's multi-device route: the coefficients, zero-padded, go
 through the four-step transform with its rows split over the mesh's ranks

@@ -1,7 +1,7 @@
 """Bit and log helpers (semantics of src/p3/utils.rs).
 
-The log helpers and `reverse_bits_len` are copies of
-plonky25_tpu/utils/bits.py;
+The log helpers, `reverse_bits_len`, `reverse_bits` and
+`reverse_slice_index_bits` are copies of plonky25_tpu/utils/bits.py;
 `reverse_bits_len_u32` is the tensor form of plonky25_tpu/ops/u32.py's.
 """
 
@@ -27,6 +27,24 @@ def reverse_bits_len(x: int, bit_len: int) -> int:
         out = (out << 1) | (x & 1)
         x >>= 1
     return out
+
+
+def reverse_bits(x: int, n: int) -> int:
+    """utils.rs:15-18 (n must be a power of two)."""
+    return reverse_bits_len(x, log2_strict(n))
+
+
+def reverse_slice_index_bits(vals):
+    """In-place bit-reversal permutation of a list (utils.rs:33-43)."""
+    n = len(vals)
+    if n == 0:
+        return vals
+    log_n = log2_strict(n)
+    for i in range(n):
+        j = reverse_bits_len(i, log_n)
+        if i < j:
+            vals[i], vals[j] = vals[j], vals[i]
+    return vals
 
 
 def reverse_bits_len_u32(x: torch.Tensor, bit_len: int) -> torch.Tensor:

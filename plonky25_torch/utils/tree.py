@@ -1,5 +1,6 @@
-"""Map a function over the tensors of a nested structure: dicts, lists,
-tuples and the GL/GL2 named tuples (the port's jax.tree.map)."""
+"""Map a function over the tensors of a nested structure, or list them:
+dicts, lists, tuples and the GL/GL2 named tuples (the port's
+jax.tree.map and jax.tree.leaves)."""
 
 import torch
 
@@ -19,3 +20,15 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
     raise TypeError(f"cannot map over {type(tree).__name__}")
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of `tree` in tree_map's order (the port's
+    jax.tree.leaves); None and any other non-container leaf are skipped."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return []

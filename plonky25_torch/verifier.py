@@ -16,8 +16,14 @@ Every stage takes a leading proof axis B: one proof is a batch of one, and
 stages flatten (B, Q) into one lane axis (as the JAX package's
 _batched_*_fn do), so each sponge chunk or path level is one Poseidon2
 launch over the whole batch.  The stages run one after the other on the
-caller's device; there is no fused form to choose, since PyTorch runs
-eagerly.
+caller's device.
+
+Not ported, with the reason: JAX's `TpuVerifier.verify(fused=)`,
+`verify_witness_fused` and `fused_default` choose one jitted XLA program
+for the five stages.  PyTorch runs eagerly and compiles no program; on the
+card the counterpart of fusing the stages is a captured CUDA graph, which
+is performance work, not an API.  `TpuVerifier` itself is
+`TorchVerifier` here.
 
 Host-derivable scalars (domain shifts, generators, inverses, the zps
 first-point factors) are computed on Python ints from the proof's shape.

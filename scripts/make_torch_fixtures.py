@@ -77,7 +77,8 @@ Writes, into tests/fixtures/ (every group by default):
       bytes, 202.4 s.  Group `parallel` adds, in the same file, the JAX
       package's multi-device results on 8 virtual CPU devices that
       tests/test_torch_parallel.py and test_torch_four_step.py compare
-      with (see parallel below).
+      with (see parallel below), and group `api_gaps` the JAX values of
+      tests/test_torch_api_gaps.py (see api_gaps below).
 
 `chip_smoke.py` and the port's tests read these files, so the port can be
 checked on a machine without JAX.  This script may import plonky25_tpu; the
@@ -531,11 +532,12 @@ def jax_values():
     out["grind"] = {"base": base, "rest": rest, "found": bool(found),
                     "offset": int(off)}
     path = os.path.join(OUT, "torch_tests_jax_values.json")
-    if os.path.exists(path):            # keep the `parallel` group's values
+    if os.path.exists(path):    # keep the `parallel` and `api_gaps` values
         with open(path) as f:
-            kept = json.load(f).get("parallel")
-        if kept is not None:
-            out["parallel"] = kept
+            kept = json.load(f)
+        for group in ("parallel", "api_gaps"):
+            if group in kept:
+                out[group] = kept[group]
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     return [path]
@@ -835,10 +837,77 @@ def parallel():
     return [path]
 
 
+def api_gaps():
+    """The JAX package's values of the names the port added last, on
+    seeded inputs (stored beside them), added to torch_tests_jax_values.json
+    under `api_gaps`; ~16 s, most of it compiling the Merkle tree and
+    keccak-f:
+
+      gl     goldilocks constant, mul_add, is_zero and div (b with zeros:
+             JAX's div is mul(a, inv(b)), so a / 0 == 0);
+      gl2    extension mul_add, div (y with a zero), frobenius, concat;
+      tree   DeviceMerkleTree(rows).root_host() of a seeded (8, 5) matrix
+             (the port takes the same matrix as columns (5, 8));
+      keccak keccak_f_jit of seeded states, as u64 ints."""
+    from plonky25_tpu.fields import gl2
+    from plonky25_tpu.ops import keccak as jk
+    from plonky25_tpu.ops.mmcs import DeviceMerkleTree
+
+    rng = np.random.default_rng(0xA91)
+    edge = [0, 1, P - 1, 1 << 32, (1 << 32) - 1, P - 2]
+
+    def vals(n, zeros=0):
+        v = [int(x) for x in rng.integers(0, P, size=n - len(edge),
+                                          dtype=np.uint64)] + edge
+        for i in range(zeros):
+            v[3 * i] = 0
+        return v
+
+    def ints(x):
+        return [int(v) for v in
+                np.asarray(gl.to_u64(x), dtype=object).reshape(-1)]
+
+    a, b, c = vals(16), vals(16, zeros=2), vals(16)
+    ga, gb, gc = (gl.from_u64(np.asarray(v, dtype=object)) for v in (a, b, c))
+    consts = [0, 1, P - 1, P, P + 5, (1 << 64) - 1, 12345]
+    out = {"gl": {"a": a, "b": b, "c": c, "consts": consts,
+                  "constant": [ints(gl.constant(v)) for v in consts],
+                  "mul_add": ints(gl.mul_add(ga, gb, gc)),
+                  "is_zero": [bool(z) for z in np.asarray(gl.is_zero(gb))],
+                  "div": ints(gl.div(ga, gb))}}
+    x = gl2.GL2(ga, gc)
+    y = gl2.GL2(gb, gl.from_u64(np.asarray(b, dtype=object)))  # y[0] == 0
+    z = gl2.GL2(gc, ga)
+
+    def ints2(v):
+        return [ints(v.c0), ints(v.c1)]
+
+    out["gl2"] = {"mul_add": ints2(gl2.mul_add(x, y, z)),
+                  "div": ints2(gl2.div(x, y)),
+                  "frobenius": ints2(gl2.frobenius(x)),
+                  "concat": ints2(gl2.concat([x, z]))}
+    rows = [[int(v) for v in r] for r in
+            rng.integers(0, P, size=(8, 5), dtype=np.uint64)]
+    out["tree"] = {"rows": rows, "root": DeviceMerkleTree(
+        gl.from_u64(np.asarray(rows, dtype=object))).root_host()}
+    states = [[int(v) for v in r] for r in
+              rng.integers(0, 1 << 64, size=(3, 25), dtype=np.uint64)]
+    st = jk.keccak_f_jit(jk.from_u64(states))
+    out["keccak"] = {"states": states, "out": [
+        [int(v) for v in r] for r in np.asarray(jk.to_u64(st), dtype=object)]}
+    path = os.path.join(OUT, "torch_tests_jax_values.json")
+    with open(path) as f:
+        values = json.load(f)
+    values["api_gaps"] = out
+    with open(path, "w") as f:
+        json.dump(values, f, indent=1)
+    return [path]
+
+
 GROUPS = {"fibonacci": fibonacci, "multistage": multistage, "mmcs": mmcs,
           "keccak": keccak, "keccak_digest": keccak_digest,
           "jax_values": jax_values, "attest": attest, "composed": composed,
-          "parallel": parallel}
+          "parallel": parallel, "api_gaps": api_gaps}
 
 
 def main():
