@@ -16,7 +16,20 @@ Phases, one line each; any failure exits non-zero:
                 count it launches;
   [single]      `verify_proof` of the fixture proof: the transcript values
                 of tests/fixtures/proof_fibonacci_expected.json, the tamper
-                battery, the launch count, the latency;
+                battery, the launch count, the latency (verify_proof takes
+                the fused program on the card: its first call captures the
+                graph);
+  [fused]       the fused verification (`verify(fused=True)`, one CUDA
+                graph) against the staged one (`fused=False`) on the
+                fixture proof: flags, alpha, zeta, query indices and
+                `_verify_all_fn`'s samples equal, and equal to the fixture;
+                golden, the tamper battery, golden through one program (the
+                staged verdicts, a held result unchanged); two instances of
+                a FibonacciAir with a public first-row value through one
+                cached verifier; launches per replay held to the shape;
+                capture, instantiation and first-replay ms, the pool's
+                bytes, wall ms fused and staged in turns (median of 5),
+                one replay's device time;
   [batch]       `BatchVerifier` at B=2048 proofs x Q=100 queries: exact
                 verdicts, ms per batch, queries/s, peak memory, ms per stage
                 (CUDA events), device time (torch.profiler);
@@ -32,11 +45,13 @@ Phases, one line each; any failure exits non-zero:
   [prove]       fib(2^20) at FriConfig(1, 100, 16): accepted by the port's
                 `verify_proof`, a flipped Merkle sibling rejected; first and
                 steady latency, ms per stage, launches, device time and busy
-                share, peak memory;
+                share, peak memory; then a fresh prover of that shape:
+                `warmup()` ms and its first proof's, byte-equal;
   [batch-prove] `BatchProver` on B=256 copies of fib(64), one lane's trace
                 tampered: valid lanes byte-equal to the fixture, the tampered
-                lane rejected by its quotient check; proofs/s, peak memory,
-                launches per batch;
+                lane rejected by its quotient check; `warmup(256)` ms and
+                the first batch's after it; proofs/s, peak memory, launches
+                per batch;
   [mmcs-multi]  the multi-height MMCS `verify_batch` on
                 tests/fixtures/mmcs_multi_height.json (heights 2^12, 2^12,
                 2^6, 2^3, 1; 100 openings): all accepted, a flipped sibling
@@ -46,7 +61,8 @@ Phases, one line each; any failure exits non-zero:
                 64-row traces of tests/fixtures/proof_{rlc,multiset}64_
                 expected.json: digest, commitments, challenges, alpha,
                 zeta, PoW witness and query indices equal to the JAX
-                package's; accepted by `verify_proof`;
+                package's; accepted by `verify_proof`, fused and staged
+                alike (the fused program's capture ms and pool bytes);
   [batch-rlc]   `BatchVerifier` at B=2048 x Q=100 on copies of the RLC
                 proof (three Merkle batches per query), five lanes tampered
                 (pow, Merkle sibling, fold sibling, final poly, stage-2
@@ -72,15 +88,18 @@ Phases, one line each; any failure exits non-zero:
                 tests/fixtures/proof_keccak32_refimpl.json, accepted by
                 `verify_proof` with the fixture's transcript, the a_prime-bit
                 tamper rejected with the JAX verifier's flags, a changed
-                trace-leaf value rejected by the Merkle check; launch counts;
+                trace-leaf value rejected by the Merkle check; fused and
+                staged verification alike (capture ms, pool bytes); launch
+                counts;
   [prove-keccak]  KeccakAir at 2^12 rows x 2,633 columns (the fixture's 170
                 seeded permutations), FriConfig(1, 100, 16): digest, commitments,
                 alpha, zeta, PoW witness and query indices equal to
                 tests/fixtures/proof_keccak_expected.json (the JAX device
                 prover's); first and steady latency, keccak-f/s, stage ms,
                 launches, device time and busy share, peak memory;
-  [verify-keccak]  `verify_proof` of that proof: launches (659 sponge
-                chunks per trace leaf), latency median of 5;
+  [verify-keccak]  `verify_proof` of that proof: fused and staged alike
+                (capture ms, pool bytes), launches (659 sponge chunks per
+                trace leaf), latency median of 5;
   [batch-keccak]  `BatchVerifier` at B=256 copies of that proof x Q=100,
                 four lanes tampered: exact verdicts, queries/s, stage ms,
                 peak memory;
@@ -176,6 +195,8 @@ Phases, one line each; any failure exits non-zero:
                 proof byte-equal to the fixture, one all_gather_object
                 (its host ms); proofs/s beside an unmeshed batch in turns,
                 launches, peak memory;
+  [graphs]      every fused program the run captured (one per verifier
+                shape): warm-up, capture and instantiation ms, pool bytes;
   [timing]      each kernel at each path's state counts against its bound
                 and its plain version (the plain version timed once per
                 state count); both kernels, each variant, at
@@ -196,7 +217,10 @@ then the kernel table line {"kernels": [...]} (launches and times of
 MAIN_PATH, compose_golden, with every path's beside them) and the last
 line {"ok": true, "device": {...}}.  Every path is driven with the launch
 counts set to 0 just before it and read just after, and the counts are held
-to the numbers the path's shape gives, by variant too.  The multi-device
+to the numbers the path's shape gives, by variant too: a single
+verification's first call through a verifier launches its kernels twice
+(the eager warm-up before the graph's capture, then the replay;
+verify_runs), later calls once per replay.  The multi-device
 phases run at world size 1 on the one card the script uses: their
 collectives, padding and per-rank slicing all run, but nothing is divided
 (the CPU tests divide over 2-4 gloo ranks).
@@ -234,6 +258,7 @@ import torch.distributed as dist  # noqa: E402
 
 import plonky25_torch.attest as attest_mod  # noqa: E402
 import plonky25_torch.attest_program as attp  # noqa: E402
+import plonky25_torch.verifier as verifier_mod  # noqa: E402
 from plonky25_torch.challenger import SymbolicChallenger  # noqa: E402
 from plonky25_torch.constants import EXT_DEGREE, RATE  # noqa: E402
 from plonky25_torch.fields import gl  # noqa: E402
@@ -307,7 +332,11 @@ from plonky25_torch.utils.roofline import (  # noqa: E402
     poseidon2_bound_ms,
 )
 from plonky25_torch.utils.tree import tree_map  # noqa: E402
-from plonky25_torch.verifier import get_verifier, verify_proof  # noqa: E402
+from plonky25_torch.verifier import (  # noqa: E402
+    _publics,
+    get_verifier,
+    verify_proof,
+)
 from plonky25_torch.witness import pack_witness  # noqa: E402
 
 # the module (the package exports its `prove` function under that name)
@@ -630,6 +659,75 @@ def verdict(r):
             ("ok", "pow_ok", "merkle_ok", "fold_ok", "quotient_ok")}
 
 
+def transcript(r):
+    """A VerifyResult's flags, alpha, zeta and query indices, as plain
+    values."""
+    return dict(verdict(r), alpha=ext_int(r.alpha), zeta=ext_int(r.zeta),
+                query_indices=r.query_indices.tolist())
+
+
+class PublicFibonacciAir(FibonacciAir):
+    """FibonacciAir with its first-row value a public value (the port's
+    FibonacciAir has none): the same constraints, and so the fixture
+    proof's quotient, when the public is 1.  [fused] sends two instances
+    with different values through one cached verifier."""
+
+    def __init__(self, first):
+        self.first = first
+
+    def public_values(self):
+        return {"first": self.first}
+
+    def eval(self, folder):
+        ops = folder.ops
+        a, b, c = folder.main.trace_local[:3]
+        na, nb, _ = folder.main.trace_next[:3]
+        folder.assert_eq(ops.add(a, b), c)
+        folder.when_first_row().assert_eq(folder.publics["first"], a)
+        folder.when_first_row().assert_eq(ops.one(), b)
+        folder.when_transition().assert_eq(na, b)
+        folder.when_transition().assert_eq(nb, c)
+
+
+def program_of(v):
+    """The verifier's fused program (utils/graphs.py's StaticProgram)."""
+    check(v._program is not None, "the verifier made no fused program")
+    return v._program
+
+
+def verify_runs(v):
+    """How many times a single verification through `v`, which takes the
+    fused program on the card, launches its kernels: twice at the first
+    call (the eager warm-up before the capture, then the replay), once
+    later.  Read before the call."""
+    return 2 if v._program is None else 1
+
+
+def scaled(shapes, k):
+    """{states: launches} times k."""
+    return {n: c * k for n, c in shapes.items()}
+
+
+def program_text(stats):
+    """Capture figures of a fused program, as text."""
+    return (f"warm-up {stats['warmup_ms']:.1f} ms, capture "
+            f"{stats['capture_ms']:.1f} ms, instantiate "
+            f"{stats['instantiate_ms']:.1f} ms, first replay "
+            f"{stats['first_replay_ms']:.1f} ms, pool "
+            f"{stats['pool_bytes'] / 2**20:.1f} MiB")
+
+
+def fused_vs_staged(path, proof, air, fc):
+    """`proof` through its cached verifier fused and staged: the flags,
+    alpha, zeta and query indices equal.  Returns the program's capture
+    figures."""
+    v = get_verifier(air, derive_config(proof, fc), DEVICE)
+    check(transcript(v.verify(proof, fused=True))
+          == transcript(v.verify(proof, fused=False)),
+          f"{path}: the fused and the staged verification differ")
+    return dict(program_of(v).stats)
+
+
 def proof_digest(proof, v, cfg):
     """The values a digest fixture holds a proof to, computed on the card:
     the sha256 of its compact JSON, its commitments, and the verifier's
@@ -655,6 +753,114 @@ def proof_digest(proof, v, cfg):
         got["stage2_commit"] = proof.commitments.stage2.value
         got["challenges"] = [[smp[i0], smp[i1]] for i0, i1 in v.challenge_idx]
     return got
+
+
+def fused_phase(proof, fc, cfg, expected, split_max, path_launches,
+                path_shapes):
+    """[fused]: the fixture proof through the cached verifier's fused
+    program (a CUDA graph captured at [single]'s first verify_proof) and
+    its staged path.  Returns (a line of text, the report)."""
+    fib = FibonacciAir()
+    v = get_verifier(fib, cfg, DEVICE)
+    prog = program_of(v)
+    # equality with the staged path, the fixture's values and samples
+    held = v.verify(proof, fused=True)
+    first = transcript(held)
+    check(first == transcript(v.verify(proof, fused=False)),
+          "fused: the fused and the staged verification differ")
+    check(first["ok"] and all(first[k] == expected[k] for k in
+                              ("alpha", "zeta", "query_indices")),
+          "fused: alpha, zeta or the query indices differ from the fixture")
+    w = pack_witness(proof, cfg, DEVICE)
+    fused_samples = gl.to_u64(v._s_all(w, _publics(fib, DEVICE))["samples"])
+    staged = v.verify_witnesses(tree_map(lambda a: a[None], w))
+    check(fused_samples.tolist() == gl.to_u64(staged["samples"][0]).tolist(),
+          "fused: _verify_all_fn's samples differ from the staged transcript")
+    # no stale inputs: golden, [single]'s tamper battery, golden again
+    battery = ["golden"] + list(TAMPERED) + ["golden"]
+    for kind in battery:
+        p = proof if kind == "golden" else tamper(proof, kind)
+        got = transcript(v.verify(p, fused=True))
+        check(got == transcript(v.verify(p, fused=False)),
+              f"fused: {kind}: the fused verdict differs from the staged one")
+        check(got["ok"] == (kind == "golden"), f"fused: {kind}: ok "
+              f"{got['ok']}")
+    check(transcript(held) == first, "fused: a held result changed")
+    # publics: two instances of one AIR class through one verifier
+    verdicts = []
+    for value in (1, 2, 1):
+        vp = get_verifier(PublicFibonacciAir(value), cfg, DEVICE)
+        got = verdict(vp.verify(proof, fused=True))
+        check(got == verdict(vp.verify(proof, fused=False)),
+              f"fused: public {value}: fused and staged verdicts differ")
+        verdicts.append(got["ok"])
+    check(verdicts == [True, False, True] and vp._program is not None,
+          f"fused: public values gave {verdicts}")
+    # launches per replay, and of the staged path
+    for path, fused in (("verify_fused", True), ("verify_staged", False)):
+        path_shapes[path] = path_shapes["verify_single"]
+        ok, path_launches[path] = counted(
+            lambda: bool(v.verify(proof, fused=fused).ok))
+        check(ok, f"{path}: the fixture was rejected")
+        check_launches(path, path_launches[path], path_shapes[path],
+                       split_max)
+    # wall ms, in turns
+    wall = {True: [], False: []}
+    for _ in range(5):
+        for fused in (True, False):
+            t0 = time.perf_counter()
+            check(bool(v.verify(proof, fused=fused).ok), "fixture rejected")
+            wall[fused].append((time.perf_counter() - t0) * 1e3)
+    # one replay's device time, the inputs loaded
+    prog.load(w, _publics(fib, DEVICE))
+    prof = profile_device_time(prog.run)
+    replay = ("not measured (the profiler saw no kernels)" if prof is None
+              else f"{prof[0]:.1f} ms device time in {prof[1]} kernels")
+    med = {k: statistics.median(t) for k, t in wall.items()}
+    line = (f"[fused] fixture proof: verify(fused=True) equal to "
+            f"fused=False and to the fixture (flags, alpha, zeta, "
+            f"{len(first['query_indices'])} query indices), the program's "
+            f"{len(fused_samples)} samples the staged transcript's; golden, "
+            f"{len(TAMPERED)} tampers, golden through one program: the "
+            f"staged verdicts, a held result unchanged; public values 1, 2, "
+            f"1 through one cached verifier: {verdicts}; "
+            f"{path_launches['verify_fused'][AOS]} {AOS} launches per replay "
+            f"({path_launches['verify_fused'][AOS + '.split']} split), as "
+            f"staged; wall median of 5 in turns: fused {med[True]:.1f} ms, "
+            f"staged {med[False]:.1f} ms; one replay: {replay}; "
+            + program_text(prog.stats))
+    return line, {"stats": dict(prog.stats), "fused_ms": wall[True],
+                  "staged_ms": wall[False],
+                  "launches": path_launches["verify_fused"],
+                  "staged_launches": path_launches["verify_staged"],
+                  "replay_device_ms": prof and prof[0],
+                  "replay_kernels": prof and prof[1],
+                  "publics_verdicts": verdicts}
+
+
+def graphs_summary():
+    """[graphs]: every fused program this run captured, one per verifier
+    shape: (a line of text, {shape: capture figures})."""
+    out = {}
+    for v in verifier_mod._verifier_cache.values():
+        fc = v.config.fri_config
+        if v._program is not None:
+            out[f"{type(v.air).__name__} 2^{v.n_phases} x "
+                f"{v.config.trace_width}, FriConfig({fc.log_blowup}, "
+                f"{fc.num_queries}, {fc.proof_of_work_bits})"] = dict(
+                    v._program.stats)
+    total = {k: sum(st[k] for st in out.values())
+             for k in ("warmup_ms", "capture_ms", "instantiate_ms",
+                       "pool_bytes")}
+    return (f"[graphs] {len(out)} fused programs captured in this run "
+            f"(warm-up {total['warmup_ms'] / 1e3:.1f} s, capture "
+            f"{total['capture_ms'] / 1e3:.1f} s, instantiation "
+            f"{total['instantiate_ms'] / 1e3:.1f} s, pools "
+            f"{total['pool_bytes'] / 2**20:.1f} MiB in all): "
+            + "; ".join(f"{k}: {st['capture_ms']:.0f}/"
+                        f"{st['instantiate_ms']:.0f} ms, "
+                        f"{st['pool_bytes'] / 2**20:.0f} MiB"
+                        for k, st in out.items())), out
 
 
 def timed_runs(prove_batch, traces):
@@ -805,24 +1011,33 @@ def add_shapes(*parts):
     return {k: dict(v) for k, v in out.items()}
 
 
-def att_verifier_shapes(log_n, att_fc, b=1):
+def att_verifier(log_n, att_fc):
+    """The cached verifier of VerifierAir STARKs of 2^log_n rows."""
+    return get_verifier(VerifierAir(),
+                        shape_config(VerifierAir(), log_n, att_fc), DEVICE)
+
+
+def att_verifier_shapes(log_n, att_fc, b=1, runs=1):
     """The state-major shapes of verifying b VerifierAir STARKs of 2^log_n
-    rows (one launch per sponge chunk of the 620-column leaf)."""
-    v = get_verifier(VerifierAir(), shape_config(VerifierAir(), log_n, att_fc),
-                     DEVICE)
-    return verify_path_shapes(v, b)
+    rows (one launch per sponge chunk of the 620-column leaf), `runs`
+    times over (verify_runs)."""
+    return scaled(verify_path_shapes(att_verifier(log_n, att_fc), b), runs)
 
 
-def attest_step_shapes(targets, rows, att_fc, windows, b_record):
+def attest_step_shapes(targets, rows, att_fc, windows, b_record,
+                       record_runs=1):
     """{step: {kernel: {states: launches}}} of attest / attest_many:
     record (the port's verifier over each same-shape group of the target
     proofs, `targets` as (P3Config, count) pairs; b_record proofs per
-    BatchVerifier pass), gammas, trace and prove (the attestation STARK's
-    transcript and trees at its height, `windows` grind windows)."""
+    BatchVerifier pass; a group of one takes the fused program,
+    `record_runs` times over, verify_runs), gammas, trace and prove (the
+    attestation STARK's transcript and trees at its height, `windows`
+    grind windows)."""
     rec = []
     for cfg, n in targets:
         v = get_verifier(FibonacciAir(), cfg, DEVICE)
-        rec.append({AOS: verify_path_shapes(v, n)})
+        rec.append({AOS: scaled(verify_path_shapes(v, n),
+                                record_runs if n == 1 else 1)})
     log_n = max(len(rows) - 1, 3).bit_length()
     return {"record": add_shapes(*rec),
             "gammas": {AOS: dict(gamma_shapes(rows)), SOA: {}},
@@ -838,22 +1053,26 @@ def check_steps(path, clock, step_shapes, split_max):
                        shapes, split_max)
 
 
-def check_shapes(rows, log_n, att_fc):
+def check_shapes(rows, log_n, att_fc, runs=1):
     """State-major shapes of check_attestation(s) past its structural
-    gate: the gammas, then the STARK's verification."""
+    gate: the gammas, then the STARK's verification (`runs` times,
+    verify_runs)."""
     return add_shapes({AOS: gamma_shapes(rows)},
-                      {AOS: att_verifier_shapes(log_n, att_fc)})
+                      {AOS: att_verifier_shapes(log_n, att_fc, runs=runs)})
 
 
-def outer_step_shapes(inner, rows, att_fc, windows, composed=True):
+def outer_step_shapes(inner, rows, att_fc, windows, composed=True,
+                      record_runs=1):
     """{step: {kernel: {states: launches}}} of attest_composed
     (composed) or attest_attestation: record (the port's verifier of the
-    inner VerifierAir STARK), the host steps (schedule, outer-schedule: no
-    launch), gammas, trace and prove (the outer STARK at its height)."""
+    inner VerifierAir STARK, `record_runs` times, verify_runs), the host
+    steps (schedule, outer-schedule: no launch), gammas, trace and prove
+    (the outer STARK at its height)."""
     log_n = max(len(rows) - 1, 3).bit_length()
     host = ("schedule", "outer-schedule") if composed else ("schedule",)
     out = {"record": {AOS: att_verifier_shapes(inner.stark.degree_bits,
-                                               inner.att_fri_config),
+                                               inner.att_fri_config,
+                                               runs=record_runs),
                       SOA: {}}}
     out.update({step: {AOS: {}, SOA: {}} for step in host})
     out.update({"gammas": {AOS: dict(gamma_shapes(rows)), SOA: {}},
@@ -993,6 +1212,7 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
     # byte (made by the JAX package's device prover)
     fib = FibonacciAir()
     clock = StepClock()
+    runs = verify_runs(get_verifier(fib, cfg, DEVICE))
     t0 = time.perf_counter()
     bundle_g, path_launches["attest_golden"] = counted(
         lambda: attest_mod.attest(proof, fib, fc, att_fri_config=att_fc,
@@ -1003,7 +1223,8 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
           "differs from artifacts/attestation_fibonacci.json")
     ag_windows = (bundle_g.stark.opening_proof.fri_proof.pow_witness
                   // grind_window(att_fc) + 1)
-    ag_steps = attest_step_shapes([(cfg, 1)], rows_g, att_fc, ag_windows, 1)
+    ag_steps = attest_step_shapes([(cfg, 1)], rows_g, att_fc, ag_windows, 1,
+                                  runs)
     check_steps("attest_golden", clock, ag_steps, split_max)
     path_shapes["attest_golden"] = add_shapes(*ag_steps.values())
     check_launches("attest_golden", path_launches["attest_golden"],
@@ -1026,6 +1247,7 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
 
     lap("attest-golden")
     # ---- check the committed golden bundle, and five tampers of it
+    runs = verify_runs(att_verifier(att_logs["golden"], att_fc))
     t0 = time.perf_counter()
     ok, path_launches["check_golden"] = counted(
         lambda: attest_mod.check_attestation(golden, proof, fib, fc,
@@ -1034,7 +1256,7 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
     cg_ms = (time.perf_counter() - t0) * 1e3
     check(ok, "check-golden: the committed bundle was refused")
     path_shapes["check_golden"] = check_shapes(rows_g, att_logs["golden"],
-                                               att_fc)
+                                               att_fc, runs)
     check_launches("check_golden", path_launches["check_golden"],
                    path_shapes["check_golden"], split_max)
     dev_cg, prof_cg = UNPROFILED, None
@@ -1078,6 +1300,8 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
     # ---- the small artifact: attest and attest_many, byte for byte
     sp = [proof_from_json(x) for x in small["proofs"]]
     clock = StepClock()
+    runs = verify_runs(get_verifier(fib, derive_config(sp[0], small_fc),
+                                    DEVICE))
     sb, path_launches["attest_small"] = counted(lambda: attest_mod.attest(
         sp[0], fib, small_fc, att_fri_config=small_att, device=DEVICE,
         on_step=clock.start()))
@@ -1088,7 +1312,7 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
         attp.build_verification_schedule(
             sp[0], derive_config(sp[0], small_fc), fib, sb.samples),
         small_att, sb.stark.opening_proof.fri_proof.pow_witness
-        // grind_window(small_att) + 1, 1)
+        // grind_window(small_att) + 1, 1, runs)
     check_steps("attest_small", clock, sms_steps, split_max)
     path_shapes["attest_small"] = add_shapes(*sms_steps.values())
     check_launches("attest_small", path_launches["attest_small"],
@@ -1139,6 +1363,7 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
     check_launches("attest_many", path_launches["attest_many"],
                    path_shapes["attest_many"], split_max)
     am_step_text = clock.text()
+    runs = verify_runs(att_verifier(att_logs["many"], att_fc))
     t0 = time.perf_counter()
     ok, path_launches["check_many"] = counted(
         lambda: attest_mod.check_attestations(mb, [proof] * copies, fib, fc,
@@ -1146,7 +1371,8 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
                                               device=DEVICE))
     cm_ms = (time.perf_counter() - t0) * 1e3
     check(ok, "attest-many: check_attestations refused the bundle")
-    path_shapes["check_many"] = check_shapes(rows_m, att_logs["many"], att_fc)
+    path_shapes["check_many"] = check_shapes(rows_m, att_logs["many"], att_fc,
+                                             runs)
     check_launches("check_many", path_launches["check_many"],
                    path_shapes["check_many"], split_max)
     flipped = copy.deepcopy(mb)
@@ -1217,6 +1443,8 @@ def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
     # ---- the small composition: the JAX values, the int oracle, the
     # checker's verdicts and its tamper battery
     clock = StepClock()
+    runs = verify_runs(att_verifier(inner_s.stark.degree_bits,
+                                    inner_s.att_fri_config))
     t0 = time.perf_counter()
     cs_, path_launches["compose_small"] = counted(
         lambda: attest_mod.attest_composed(
@@ -1229,7 +1457,7 @@ def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
     windows = (cs_.outer.stark.opening_proof.fri_proof.pow_witness
                // grind_window(small_att) + 1)
     steps = outer_step_shapes(inner_s, rows["compose_small"], small_att,
-                              windows)
+                              windows, record_runs=runs)
     check_outer_steps("compose_small", clock, steps, split_max)
     path_shapes["compose_small"] = add_shapes(*steps.values())
     check_launches("compose_small", path_launches["compose_small"],
@@ -1322,6 +1550,8 @@ def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
     lap("compose-small")
     # ---- attest_attestation of the small bundle
     clock = StepClock()
+    runs = verify_runs(att_verifier(inner_s.stark.degree_bits,
+                                    inner_s.att_fri_config))
     t0 = time.perf_counter()
     ob, path_launches["attest_attestation"] = counted(
         lambda: attest_mod.attest_attestation(
@@ -1334,7 +1564,7 @@ def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
     windows = (ob.stark.opening_proof.fri_proof.pow_witness
                // grind_window(small_att) + 1)
     steps = outer_step_shapes(inner_s, rows["attest_attestation"], small_att,
-                              windows, composed=False)
+                              windows, composed=False, record_runs=runs)
     check_outer_steps("attest_attestation", clock, steps, split_max)
     path_shapes["attest_attestation"] = add_shapes(*steps.values())
     check_launches("attest_attestation", path_launches["attest_attestation"],
@@ -1375,6 +1605,8 @@ def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
     golden = att["golden"]
     torch.cuda.empty_cache()
     clock = StepClock()
+    runs = verify_runs(att_verifier(golden.stark.degree_bits,
+                                    golden.att_fri_config))
     t0 = time.perf_counter()
     cg, path_launches["compose_golden"] = counted(
         lambda: attest_mod.attest_composed(
@@ -1392,7 +1624,8 @@ def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
           f"rule gives {s_rule}")
     windows = (cg.outer.stark.opening_proof.fri_proof.pow_witness
                // grind_window(att_fc) + 1)
-    steps = outer_step_shapes(golden, rows["compose_golden"], att_fc, windows)
+    steps = outer_step_shapes(golden, rows["compose_golden"], att_fc, windows,
+                              record_runs=runs)
     check_outer_steps("compose_golden", clock, steps, split_max)
     path_shapes["compose_golden"] = add_shapes(*steps.values())
     check_launches("compose_golden", path_launches["compose_golden"],
@@ -1419,6 +1652,7 @@ def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
     # ---- check the golden composition, and two tampers refused before
     # the gammas (no launch)
     clock = StepClock()
+    runs = verify_runs(att_verifier(19, att_fc))
     t0 = time.perf_counter()
     ok, path_launches["check_composed_golden"] = counted(
         lambda: attest_mod.check_composed(
@@ -1429,7 +1663,8 @@ def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
     steps = {"schedule": {AOS: {}, SOA: {}},
              "gammas": {AOS: dict(gamma_shapes(rows["compose_golden"])),
                         SOA: {}},
-             "verify": {AOS: att_verifier_shapes(19, att_fc), SOA: {}}}
+             "verify": {AOS: att_verifier_shapes(19, att_fc, runs=runs),
+                        SOA: {}}}
     check_outer_steps("check_composed_golden", clock, steps, split_max)
     path_shapes["check_composed_golden"] = add_shapes(*steps.values())
     check_launches("check_composed_golden",
@@ -2150,6 +2385,12 @@ def main(argv=None):
                         "profile": prof1}
 
     lap("single")
+    # ---- the fused verification: one captured CUDA graph
+    line, report["fused"] = fused_phase(proof, fc, cfg, expected, split_max,
+                                        path_launches, path_shapes)
+    print(line)
+
+    lap("fused")
     # ---- a batch of B proofs through BatchVerifier
     bv = BatchVerifier(FibonacciAir(), cfg, device=DEVICE)
     w = pack_witness(proof, cfg, DEVICE)
@@ -2269,10 +2510,29 @@ def main(argv=None):
                               device=DEVICE))
     check(not rt["ok"] and not rt["merkle_ok"],
           "fib(2^20) proof with a flipped Merkle sibling accepted")
+    # a fresh prover of that shape (its own tables): warmup, then its
+    # first proof, byte-equal to the unwarmed prover's
+    warmed = TorchProver(air, LOG_N, fc, DEVICE,
+                         quotient_eval_chunks_for(air, LOG_N))
+    t0 = time.perf_counter()
+    warmed.warmup()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    wp = warmed.prove(trace)
+    torch.cuda.synchronize()
+    warm_first_ms = (time.perf_counter() - t0) * 1e3
+    check(hashlib.sha256(compact(wp).encode()).hexdigest() == prove_sha,
+          "fib(2^20): the warmed prover's proof differs")
+    del warmed, wp
+    torch.cuda.empty_cache()
+    report["prove"].update(warmup_ms=warm_ms,
+                           first_after_warmup_ms=warm_first_ms)
     print(f"[prove] fib(2^{LOG_N}) at FriConfig(1, 100, 16): "
           f"{report['prove']['bytes']} bytes, accepted by verify_proof, "
           f"flipped Merkle sibling rejected; trace made in {setup_s:.1f} s "
-          f"beforehand; " + line)
+          f"beforehand; " + line + f"; a fresh prover of this shape: "
+          f"warmup() {warm_ms:.1f} ms, then its first proof "
+          f"{warm_first_ms:.1f} ms, byte-equal")
 
     lap("prove")
     # ---- BatchProver on B_PROVE copies of fib(64), one lane tampered
@@ -2280,7 +2540,12 @@ def main(argv=None):
     traces = np.asarray([fibonacci_trace(64)] * B_PROVE, dtype=np.uint64)
     traces[bad_lane, 10, 2] = (int(traces[bad_lane, 10, 2]) + 1) % P
     bp = BatchProver(air, 6, fc, device=DEVICE)
+    t0 = time.perf_counter()
+    bp.warmup(B_PROVE)
+    bp_warm_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
     proofs, path_launches["batch_prove"] = counted(lambda: bp.prove(traces))
+    bp_first_ms = (time.perf_counter() - t0) * 1e3
     for i, pr in enumerate(proofs):
         if i != bad_lane:
             check(compact(pr) == fixture_text,
@@ -2313,13 +2578,17 @@ def main(argv=None):
           f"{peak_bp_gb:.2f} GB; launches {AOS} "
           f"{path_launches['batch_prove'][AOS]}, {SOA} "
           f"{path_launches['batch_prove'][SOA]} ({bp_windows} grind windows; "
-          f"one proof's counts apart from windows); stage ms: "
+          f"one proof's counts apart from windows); warmup({B_PROVE}) "
+          f"{bp_warm_ms:.1f} ms, then the first batch {bp_first_ms:.1f} ms; "
+          f"stage ms: "
           + ", ".join(f"{k} {t:.1f}" for k, t in bp_stage_ms.items())
           + f"; {devbp}")
     report["batch_prove"] = {"B": B_PROVE, "ms_runs": runs, "ms": ms_bp,
                              "proofs_per_s": B_PROVE / ms_bp * 1e3,
                              "peak_allocated_gb": peak_bp_gb,
                              "stage_ms": bp_stage_ms, "windows": bp_windows,
+                             "warmup_ms": bp_warm_ms,
+                             "first_after_warmup_ms": bp_first_ms,
                              "launches": path_launches["batch_prove"],
                              "profile": profbp}
 
@@ -2389,6 +2658,8 @@ def main(argv=None):
         check(verdict(r) == {k: v for k, v in exp["verdict"].items()
                              if k != "shape_ok"} and r.shape_ok,
               f"{path}: verify_proof verdict differs from the fixture's")
+        report.setdefault("fused_programs", {})[path] = fused_vs_staged(
+            path, pr, ms_air, fc)
         path_shapes[path] = prove_path_shapes(
             6, fc, ms_air, 1, pr.opening_proof.fri_proof.pow_witness
             // grind_window(fc) + 1)
@@ -2399,7 +2670,9 @@ def main(argv=None):
               f"(sha256 {got['sha256'][:16]}..., trace, stage-2, quotient "
               f"and phase commitments, {len(got['challenges'])} challenges, "
               f"alpha, zeta, PoW witness {got['pow_witness']}, query indices); "
-              f"accepted by verify_proof; launches {AOS} "
+              f"accepted by verify_proof, fused and staged alike ("
+              + program_text(report["fused_programs"][path])
+              + f"); launches {AOS} "
               f"{path_launches[path][AOS]}, {SOA} {path_launches[path][SOA]} "
               f"(as the shape gives)")
 
@@ -2607,6 +2880,7 @@ def main(argv=None):
           and ext_int(r.zeta) == expected_k32["zeta"]
           and r.query_indices.tolist() == expected_k32["query_indices"],
           "the 32-row Keccak proof's transcript differs from the fixture's")
+    k32_program = fused_vs_staged("prove_keccak_32", p32, kair, fc32)
     want_t = {k: v for k, v in
               expected_k32["tamper_a_prime_bit"]["verdict"].items()
               if k != "shape_ok"}
@@ -2624,12 +2898,14 @@ def main(argv=None):
           f"({len(k32_text)} bytes); accepted by verify_proof with the "
           f"fixture's alpha, zeta and query indices; a_prime-bit tamper "
           f"rejected with the JAX verifier's flags {want_t}; changed "
-          f"trace-leaf value rejected (merkle_ok False); launches {AOS} "
+          f"trace-leaf value rejected (merkle_ok False); fused and staged "
+          f"alike ({program_text(k32_program)}); launches {AOS} "
           f"{path_launches['prove_keccak_32'][AOS]}, {SOA} "
           f"{path_launches['prove_keccak_32'][SOA]} (as the shape gives)")
     report["prove_keccak_32"] = {"bytes": len(k32_text),
                                  "launches": path_launches["prove_keccak_32"],
-                                 "tampers": k32_flags}
+                                 "tampers": k32_flags,
+                                 "fused_program": k32_program}
 
     lap("prove-keccak-32")
     # ---- KeccakAir at 2^12 rows: the JAX package's digest, measurements
@@ -2665,6 +2941,7 @@ def main(argv=None):
     def verify_keccak():
         return verdict(verify_proof(kbig, kair, fc, device=DEVICE))
 
+    vk_program = fused_vs_staged("verify_keccak", kbig, kair, fc)
     got, path_launches["verify_keccak"] = counted(verify_keccak)
     check(got["ok"], "the Keccak 2^12 proof was rejected by verify_proof")
     check_launches("verify_keccak", path_launches["verify_keccak"],
@@ -2679,10 +2956,12 @@ def main(argv=None):
           f"proof: accepted; {path_launches['verify_keccak'][AOS]} kernel "
           f"launches ({-(-kair.width() // RATE)} sponge chunks per trace "
           f"leaf); latency median {statistics.median(lat):.1f} ms, best "
-          f"{min(lat):.1f} ms (host packing of the proof included); {devk}")
+          f"{min(lat):.1f} ms (host packing of the proof included; the "
+          f"fused program, equal to the staged path: "
+          f"{program_text(vk_program)}); {devk}")
     report["verify_keccak"] = {"latency_ms": lat,
                                "launches": path_launches["verify_keccak"],
-                               "profile": profk}
+                               "profile": profk, "fused_program": vk_program}
 
     lap("verify-keccak")
     # ---- BatchVerifier on B_KECCAK copies of that proof, four tampered
@@ -2894,6 +3173,8 @@ def main(argv=None):
                         prove_sha, split_max, path_launches, path_shapes,
                         report, lap)
     del batch_in
+    line, report["graphs"] = graphs_summary()
+    print(line)
     # ---- each kernel at each path's shapes
     clk_hz = max_sm_mhz * 1e6
     timed = {}

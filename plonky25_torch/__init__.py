@@ -20,8 +20,11 @@ checks such attestations (depth 1); `attest_composed` and
 STARK (depth 2), verifying and proving through the port or through the
 int oracle of `refimpl`.  `utils.profiling` times stages and traces runs
 (CUDA events, torch.profiler); `utils.roofline` counts a function's
-integer work and gives the H100's bound for it.  Entry points take
-`device=` ("cuda" by default) and never move to the CPU on their own.
+integer work and gives the H100's bound for it.  On the card a single
+verification replays one captured CUDA graph of its five stages
+(`TorchVerifier.verify(proof, fused=None)`, `utils.graphs`), as the JAX
+package runs one jitted program on a TPU.  Entry points take `device=`
+("cuda" by default) and never move to the CPU on their own.
 
 The package imports torch, numpy and the standard library only: nothing of
 JAX and nothing of plonky25_tpu, whose modules it mirrors by name.

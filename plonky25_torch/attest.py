@@ -77,7 +77,7 @@ from .refimpl.challenger import DuplexChallenger
 from .refimpl.prover import prove as refimpl_prove
 from .refimpl.verifier import verify as refimpl_verify
 from .utils.tree import tree_map
-from .verifier import get_verifier, verify_proof
+from .verifier import _publics, fused_default, get_verifier, verify_proof
 from .witness import pack_witness
 
 
@@ -126,16 +126,23 @@ class _RecordingChallenger(DuplexChallenger):
 def _device_instrumented_verify(proof: Proof, air, fri_config: FriConfig,
                                 device="cuda"):
     """The port's verification of one proof on `device`, also yielding
-    the raw Fiat-Shamir samples (TorchVerifier.verify_witnesses returns
-    them beside the verdict): (ok, samples), one host copy."""
+    the raw Fiat-Shamir samples (the verifier returns them beside the
+    verdict): (ok, samples).  Where `fused_default(device)` holds (a CUDA
+    device) it runs the fused program, its samples in the same replay, as
+    the JAX package does on a TPU (plonky25_tpu/attest.py:136-145); on the
+    CPU the staged verify_witnesses."""
     config = derive_config(proof, fri_config)
     v = get_verifier(air, config, device)
     if not v.check_shape(proof):
         return False, []
     w = pack_witness(proof, config, v.device)
-    r = v.verify_witnesses(tree_map(lambda a: a[None], w))
-    samples = gl.to_u64_np(r["samples"][0])
-    return bool(r["ok"][0]), [int(x) for x in samples]
+    if fused_default(v.device):
+        r = v._s_all(w, _publics(air, v.device))
+    else:
+        r = tree_map(lambda a: a[0],
+                     v.verify_witnesses(tree_map(lambda a: a[None], w)))
+    samples = gl.to_u64_np(r["samples"])
+    return bool(r["ok"]), [int(x) for x in samples]
 
 
 DEFAULT_ATT_FRI_CONFIG = FriConfig(

@@ -81,7 +81,14 @@ def constant(value: int, device) -> GL:
 
 
 def from_u64(values, device) -> GL:
-    """Host ints (int, nested list, or numpy integer array) -> canonical GL."""
+    """Host ints (int, nested list, or numpy integer array) -> canonical GL.
+    Raises for a CUDA device during a CUDA graph capture: a copy from
+    pageable host memory cannot be captured, and a tensor made there would
+    live in the graph's memory pool (make such constants beforehand)."""
+    if (torch.device(device).type == "cuda" and torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError("from_u64 copies host values to the card, which "
+                           "a CUDA graph capture cannot hold")
     if (isinstance(values, np.ndarray) and values.dtype != object
             and np.issubdtype(values.dtype, np.integer)
             and not (np.issubdtype(values.dtype, np.signedinteger)

@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` compiles with nvcc for sm_90a into
 `build/<name>-<hash>.so` at the root of the checkout, with a plain C
 interface that ctypes loads; `build_many` runs one nvcc per source, all at
-once.  The hash covers the sources and the flags, so
-an edit rebuilds and an unchanged tree reuses the library.  The compiler's
-report (registers, spills) is kept beside the library as `.log`.
+once, and refuses to run during a CUDA graph capture.  The hash covers the
+sources and the flags, so an edit rebuilds and an unchanged tree reuses
+the library.  The compiler's report (registers, spills) is kept beside
+the library as `.log`.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import os
 import subprocess
 import time
 from dataclasses import dataclass
+
+import torch
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -63,7 +66,12 @@ def build(name: str) -> Built:
 
 def build_many(names) -> dict:
     """Compile csrc/<name>.cu for every name not built yet, all nvcc
-    processes at once, then load each: {name: Built}."""
+    processes at once, then load each: {name: Built}.  Raises inside a
+    CUDA graph capture, which neither a build nor a library load may
+    interrupt (ops/poseidon2.py::load_kernels builds both beforehand)."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a kernel library cannot be built or loaded "
+                           "during a CUDA graph capture; load it first")
     started = {}
     os.makedirs(BUILD_DIR, exist_ok=True)
     for name in names:

@@ -36,7 +36,12 @@ is its own count.
 runs it: inside its block every call of either is entered as
 `with cb(n_states):`, around the plain version or the launch
 (utils/roofline.py's count_int_ops charges the permutation's work model
-there).  `poseidon2_permute_auto` is the JAX package's name for the same
+there).  Both counts and observers run in Python, which a CUDA graph
+does not replay: a graph's owner captures under `recording_launches` and
+calls `replay_launches` at each replay (utils/graphs.py), so a launch is
+counted where the kernel runs.  `load_kernels` builds both libraries
+before a capture, during which ops/build.py refuses to build.
+`poseidon2_permute_auto` is the JAX package's name for the same
 dispatch as `poseidon2_permute`.  JAX's `poseidon2_permute_jit` (a jitted
 alias) and `PALLAS_DISABLED` (the P25_DISABLE_PALLAS environment switch,
 read at import, that sends the TPU to the plain path) have no counterpart:
@@ -49,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+from dataclasses import dataclass, field
 
 import torch
 
@@ -358,3 +364,71 @@ def _poseidon2_permute_soa_variant(planes: GL, split: bool) -> GL:
 
 poseidon2_permute_soa.launches = 0
 poseidon2_permute_soa.launches_split = poseidon2_permute_soa.launches_whole = 0
+
+
+def load_kernels() -> None:
+    """Build (one nvcc for each source, started together) and load both
+    kernel libraries, so that no later call builds one: a captured CUDA
+    graph must not (ops/build.py refuses to build during a capture)."""
+    build.build_many(["poseidon2", "poseidon2_soa"])
+    kernel_library()
+    soa_kernel_library()
+
+
+# ------------------------------------------------------------ captured launches
+
+_COUNTERS = ("launches", "launches_split", "launches_whole")
+
+
+def _counts() -> dict:
+    return {(w, c): getattr(w, c)
+            for w in (poseidon2_permute, poseidon2_permute_soa)
+            for c in _COUNTERS}
+
+
+@dataclass
+class LaunchRecord:
+    """The wrapper calls of a block run by `recording_launches`: how much
+    each counter rose, and the number of states of each call."""
+
+    counts: dict = field(default_factory=dict)
+    states: list = field(default_factory=list)
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Record the block's wrapper calls without counting them: inside, the
+    observers are set aside and each call's number of states is kept; on
+    leaving, every counter goes back to its value before the block.  For a
+    block that captures a CUDA graph: the Python around a launch runs at
+    capture and not at replay, so the graph's owner passes the yielded
+    LaunchRecord to `replay_launches` once per replay, which counts the
+    launches where they run."""
+    before = _counts()
+    rec = LaunchRecord()
+    saved = _observers[:]
+
+    def keep(n):
+        rec.states.append(n)
+        return contextlib.nullcontext()
+
+    _observers[:] = [keep]
+    try:
+        yield rec
+    finally:
+        _observers[:] = saved
+        for key, value in _counts().items():
+            rec.counts[key] = value - before[key]
+            setattr(*key, before[key])
+
+
+def replay_launches(rec: LaunchRecord) -> None:
+    """Count one replay of a graph captured under `recording_launches`:
+    each counter rises as it did at capture, and every open observer is
+    entered once for each recorded call."""
+    for (w, c), d in rec.counts.items():
+        setattr(w, c, getattr(w, c) + d)
+    for n in rec.states:
+        for cb in list(_observers):
+            with cb(n):
+                pass

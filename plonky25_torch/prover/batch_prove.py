@@ -12,9 +12,8 @@ kept (the witness order of the sequential grind).  A batch therefore
 launches each kernel as often as one proof does, apart from grind windows:
 the batch grinds until its last proof has found a witness.  With a mesh
 (`prove(..., mesh=)`) each rank proves its share of the batch this way.
-
-JAX's `BatchProver.warmup` is not ported: it compiled the vmapped XLA
-modules ahead of time, and PyTorch runs eagerly.
+`warmup(n_proofs)` runs every stage once at a batch of n_proofs, as JAX's
+compiled its vmapped modules for one.
 """
 
 from __future__ import annotations
@@ -38,6 +37,14 @@ class BatchProver:
                  device="cuda", quotient_eval_chunks: int = 1):
         self.base = get_prover(air, log_n, fri_config, device,
                                quotient_eval_chunks)
+
+    def warmup(self, n_proofs: int, max_workers: int = 8) -> None:
+        """TorchProver.warmup at a batch of n_proofs (the JAX
+        BatchProver.warmup, plonky25_tpu/prover/batch_prove.py:95): every
+        stage once on zero-filled (n_proofs, W, H) inputs, the results
+        discarded.  `max_workers` is kept for JAX's signature and unused.
+        With a mesh, warm up at the share each rank proves."""
+        self.base._warmup(n_proofs)
 
     def prove(self, traces, on_stage=None, mesh=None) -> List[Proof]:
         """traces: B row-major traces of identical shape -> B proofs, each

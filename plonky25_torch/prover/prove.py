@@ -48,10 +48,11 @@ byte budgets below; `prove_on_device` picks S from the trace's size and
 QUOTIENT_EVAL_BYTES, as the JAX package's prove_on_device does from its
 own budget.
 
-`TpuProver` is `TorchProver` here.  Its `warmup` is not ported: it
-compiled every XLA module ahead of time, and PyTorch runs eagerly, with
-nothing to compile but the two kernels (built at their first launch,
-ops/build.py).
+`TpuProver` is `TorchProver` here.  Its `warmup` runs every stage once
+on zero-filled inputs of the prover's shape, so that the first proof
+pays no first-use cost: here the kernel libraries' build, the loading of
+PyTorch's kernel modules, the caching allocator's growth and the
+prover's tables, where JAX compiled its XLA modules.
 
 With `lde_mesh` (a 1-D torch.distributed DeviceMesh) the LDE commits take
 the JAX prover's multi-device route: the coefficients, zero-padded, go
@@ -59,8 +60,6 @@ through the four-step transform with its rows split over the mesh's ranks
 (`ops.ntt.coset_ntt_four_step`, two all-to-alls and an all-gather), then
 the bit-reversal gather; every rank holds the whole LDE and runs the rest
 of the proof replicated.  The proof bytes are those of the unmeshed route.
-Not ported: `warmup` (it forces XLA compilation; eager PyTorch compiles
-nothing ahead).
 """
 
 from __future__ import annotations
@@ -81,7 +80,7 @@ from ..ops.mmcs import DeviceMerkleTree
 from ..ops.ntt import (_bitrev, barycentric_eval_ext, coset_intt,
                        coset_lde_pair, coset_lde_to_rev, coset_ntt_four_step,
                        coset_points, intt, ntt, powers)
-from ..ops.poseidon2 import poseidon2_permute_soa
+from ..ops.poseidon2 import load_kernels, poseidon2_permute_soa
 from ..proof import (
     BatchOpening,
     Commitment,
@@ -508,6 +507,65 @@ class TorchProver:
         if bits > 32:
             ok &= (out.hi[11] & ((1 << (bits - 32)) - 1)) == 0
         return ok.any(-1), ok.to(torch.uint8).argmax(-1)
+
+    # ------------------------------------------------------------ warmup
+    def warmup(self, max_workers: int = 8) -> None:
+        """Run every stage of a proof once on zero-filled inputs of this
+        prover's shape and discard the results (the JAX TpuProver.warmup,
+        plonky25_tpu/prover/prove.py:655): the kernel libraries are built,
+        the tables cached and every kernel module loaded, so the first
+        proof costs what later ones do.  The proofs are the same bytes
+        with or without it.  `max_workers` is kept for JAX's signature
+        and unused: JAX compiled its modules in that many threads, and
+        nothing here compiles in parallel.  With `lde_mesh` every rank
+        calls it (the LDE's collectives run)."""
+        self._warmup(1)
+
+    def _warmup(self, b: int) -> None:
+        """warmup at a batch of b proofs (BatchProver.warmup)."""
+        dev = self.device
+        fc = self.fc
+        if dev.type == "cuda":
+            load_kernels()
+        h = 1 << self.log_n
+
+        def ze():
+            return gl2.zeros((b,), dev)
+
+        cols = gl.zeros((b, self.width, h), dev)
+        ch = DeviceChallenger((b,), dev)
+        trace_lde = self._commit_matrix(cols)
+        trees = [DeviceMerkleTree(trace_lde)]
+        ch.observe_many(trees[0].root)
+        challenges = [ch.sample_ext() for _ in range(self.n_challenges)]
+        s2_cols = s2_lde = None
+        if self.s2w:      # the stage-2 builder itself needs real challenges
+            s2_cols = gl.zeros((b, self.s2w, h), dev)
+            s2_lde = self._commit_matrix(s2_cols)
+            trees.append(DeviceMerkleTree(s2_lde))
+        q_evals = self._quotient_fn(cols, ze(), s2_cols, challenges)
+        q_lde = self._commit_chunks_fn(q_evals)
+        trees.append(DeviceMerkleTree(q_lde))
+        opened = self._opened_fn(cols, q_evals, ze(), s2_cols)
+        u = self._ro_fn(trace_lde, q_lde, *opened[:3], ze(), ze(), s2_lde,
+                        *opened[3:])
+        vectors = []
+        for log_folded in range(self.log_max - 1, fc.log_blowup - 1, -1):
+            rows_fn, step_fn = self._fold_phase_raw(log_folded)
+            rows, e0, e1 = rows_fn(u)
+            trees.append(DeviceMerkleTree(rows))
+            vectors.append(u)
+            u = step_fn(e0, e1, ze())
+        self._grind_fn(gl.zeros((b, 11), dev), 0, grind_window(fc))
+        qidx = torch.zeros((b, fc.num_queries), dtype=torch.int64, device=dev)
+        for m in (trace_lde, q_lde) + ((s2_lde,) if self.s2w else ()):
+            _gather_cols(m, qidx)
+        for tree in trees:
+            tree.open_paths(qidx)
+        for vec in vectors:
+            _gather_last(vec.c0, qidx ^ 1)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
     # ------------------------------------------------------------ prove
     def prove(self, trace, on_stage=None) -> Proof:

@@ -1,0 +1,139 @@
+"""Static-buffer programs: a function run on input buffers of its own,
+captured once as a CUDA graph on the card.
+
+The port's counterpart of `jax.jit` over a chain of stages (the JAX
+verifier's `_s_all = jax.jit(self._verify_all_fn)`).  PyTorch dispatches
+every op from the host; a CUDA graph replays the kernels a function
+enqueued with one launch, every argument and address fixed at capture.
+So a `StaticProgram` owns its inputs:
+
+  * it allocates one tensor per input leaf when it is made, shaped like
+    the template it is made from;
+  * `load(*args)` copies the caller's tensors into them (`copy_`);
+  * `run()`, on the card, replays the graph.  The graph is captured at the
+    first run, after one eager run of the function on a side stream
+    (PyTorch's documented warm-up): that run builds the kernel libraries,
+    fills the module caches and loads every kernel module, none of which
+    a capture may do.  On the CPU `run()` calls the function on the same
+    buffers: the caller chose that device, and the CPU tests go through
+    the same load, run and clone;
+  * calling the program is load + run under its lock and returns clones of
+    the outputs, which the next replay leaves alone.
+
+A failed capture or replay raises; nothing runs the function eagerly in
+its place.  The Poseidon2 wrappers count launches in Python, which runs at
+capture and not at replay: the program records what they counted at
+capture (ops/poseidon2.py::recording_launches) and counts it again at
+every replay.  A tensor that a module cache first makes during the capture
+would live in the graph's memory pool, which replays overwrite; the
+program checks that the caches did not grow during the capture.
+`stats` holds the warm-up, capture, instantiation and first-replay times
+and the bytes of the graph's memory pool.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Dict
+
+import torch
+
+from ..fields import extension
+from ..ops import ntt, poseidon2
+from .tree import tree_map, tree_signature
+
+
+def _cache_sizes() -> Dict[str, int]:
+    """The entries of every module cache that holds device tensors."""
+    sizes = {"extension._CONSTS": len(extension._CONSTS),
+             "extension._INDEX": len(extension._INDEX)}
+    for mod in (ntt, poseidon2):
+        for name, f in vars(mod).items():
+            if hasattr(f, "cache_info"):
+                sizes[f"{mod.__name__}.{name}"] = f.cache_info().currsize
+    return sizes
+
+
+class StaticProgram:
+    """`fn(*args)` on buffers of its own: a CUDA graph on the card, the
+    function itself on the CPU (module docstring)."""
+
+    def __init__(self, fn: Callable, template: tuple, device):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.signature = tree_signature(template)
+        self.inputs = tree_map(
+            lambda a: torch.empty(a.shape, dtype=a.dtype, device=self.device),
+            template)
+        self.stats: Dict[str, float] = {}
+        self._graph = None
+        self._outputs = None
+        self._launches = None
+        self._lock = threading.Lock()
+
+    def load(self, *args) -> None:
+        """Copy `args` (the template's structure and shapes) into the
+        program's input buffers."""
+        if tree_signature(args) != self.signature:
+            raise ValueError("the inputs do not have the structure and "
+                             "shapes of the program's template")
+        tree_map(lambda dst, src: dst.copy_(src), self.inputs, args)
+
+    def run(self):
+        """Run the function on the loaded buffers; returns its outputs,
+        which on the card the next run overwrites."""
+        if self.device.type != "cuda":
+            return self.fn(*self.inputs)
+        if self._graph is None:
+            self._capture()
+            t0 = time.perf_counter()
+            self._graph.replay()
+            torch.cuda.synchronize(self.device)
+            self.stats["first_replay_ms"] = (time.perf_counter() - t0) * 1e3
+        else:
+            self._graph.replay()
+        poseidon2.replay_launches(self._launches)
+        return self._outputs
+
+    def __call__(self, *args):
+        """Load `args`, run, and return clones of the outputs."""
+        with self._lock:
+            self.load(*args)
+            return tree_map(torch.clone, self.run())
+
+    def _capture(self) -> None:
+        dev = self.device
+        poseidon2.load_kernels()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            self.fn(*self.inputs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        self.stats["warmup_ms"] = (time.perf_counter() - t0) * 1e3
+        sizes = _cache_sizes()
+        # torch.cuda.graph empties the allocator's cache before it
+        # captures; emptying it here first makes the rise of the reserved
+        # bytes the graph's pool
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        # kept after the capture, so that its instantiation is timed apart
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
+        with poseidon2.recording_launches() as launches:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                outputs = self.fn(*self.inputs)
+        self.stats["capture_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        graph.instantiate()
+        torch.cuda.synchronize(dev)
+        self.stats["instantiate_ms"] = (time.perf_counter() - t0) * 1e3
+        self.stats["pool_bytes"] = torch.cuda.memory_reserved(dev) - reserved
+        grown = {k: (n, sizes[k]) for k, n in _cache_sizes().items()
+                 if n != sizes[k]}
+        if grown:
+            raise RuntimeError(f"module caches grew during the capture "
+                               f"(now, before): {grown}")
+        self._graph, self._outputs, self._launches = graph, outputs, launches

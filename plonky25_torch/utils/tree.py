@@ -1,6 +1,7 @@
-"""Map a function over the tensors of a nested structure, or list them:
-dicts, lists, tuples and the GL/GL2 named tuples (the port's
-jax.tree.map and jax.tree.leaves)."""
+"""Map a function over the tensors of a nested structure, list them, or
+describe its shape: dicts, lists, tuples and the GL/GL2 named tuples (the
+port's jax.tree.map, jax.tree.leaves and jax.tree.structure with the
+leaves' shapes)."""
 
 import torch
 
@@ -32,3 +33,19 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return []
+
+
+def tree_signature(tree):
+    """A hashable description of `tree`: its containers (dict keys, list
+    and tuple lengths, named-tuple types) and each tensor's shape and
+    dtype.  Two trees with one signature fit the same static buffers."""
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype)
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return ("dict",) + tuple((k, tree_signature(v))
+                                 for k, v in sorted(tree.items()))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,) + tuple(map(tree_signature, tree))
+    raise TypeError(f"cannot describe {type(tree).__name__}")

@@ -15,15 +15,22 @@ Every stage takes a leading proof axis B: one proof is a batch of one, and
 `parallel.batch.BatchVerifier` runs the same stages on B proofs.  The hash
 stages flatten (B, Q) into one lane axis (as the JAX package's
 _batched_*_fn do), so each sponge chunk or path level is one Poseidon2
-launch over the whole batch.  The stages run one after the other on the
-caller's device.
+launch over the whole batch.  `verify_witnesses` runs the stages one
+after the other on the caller's device (the staged path: the batch,
+sharded and multi-host verifiers and the stage clocks take it).
 
-Not ported, with the reason: JAX's `TpuVerifier.verify(fused=)`,
-`verify_witness_fused` and `fused_default` choose one jitted XLA program
-for the five stages.  PyTorch runs eagerly and compiles no program; on the
-card the counterpart of fusing the stages is a captured CUDA graph, which
-is performance work, not an API.  `TpuVerifier` itself is
-`TorchVerifier` here.
+A single proof can also take the fused path, as in the JAX package:
+`_verify_all_fn` is the five stages on one proof, and `_s_all` runs it as
+one program (utils/graphs.py's StaticProgram), where JAX runs
+`jax.jit(_verify_all_fn)`: on the card a CUDA graph captured at the
+verifier's first fused call and replayed on static input buffers, one
+host launch for some 29k kernels of a fib(64) verification; on the CPU the
+function itself on those buffers.  `verify_witness_fused` and
+`verify(proof, fused=None)` take it, the latter when `fused_default(device)`
+says so: on a CUDA device, as JAX does on a TPU.  The values are the
+staged path's, bit for bit.  JAX's P25_FUSED_VERIFY environment switch has
+no counterpart: the port reads no environment; pass `fused=`.
+`TpuVerifier` itself is `TorchVerifier` here.
 
 Host-derivable scalars (domain shifts, generators, inverses, the zps
 first-point factors) are computed on Python ints from the proof's shape.
@@ -31,6 +38,7 @@ first-point factors) are computed on Python ints from the proof's shape.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Dict
 
@@ -50,6 +58,7 @@ from .proof import FriChallenges, FriConfig, P3Config, Proof, derive_config
 from .refimpl.domains import TwoAdicMultiplicativeCoset
 from .refimpl.field import Gl
 from .utils.bits import log2_strict, reverse_bits_len_u32
+from .utils.graphs import StaticProgram
 from .utils.tree import tree_map
 from .witness import fold_valid_mask, pack_witness
 
@@ -167,6 +176,10 @@ class TorchVerifier:
                              for l in range(self.n_phases)]
         self.fold_valid = torch.as_tensor(fold_valid_mask(config),
                                           device=self.device)
+        # the fused program (_s_all), made at the first fused call as JAX
+        # compiles its _s_all lazily
+        self._program = None
+        self._program_lock = threading.Lock()
 
     # ---------------------------------------------------------------- stages
     def _transcript_fn(self, obs: GL) -> Dict:
@@ -480,14 +493,18 @@ class TorchVerifier:
         return gl2.eq(gl2.mul(folder.accumulator, invs3[2]), quotient)
 
     # ------------------------------------------------------------ entry points
-    def verify_witnesses(self, ws: Dict, on_stage=None) -> Dict:
+    def verify_witnesses(self, ws: Dict, on_stage=None,
+                         publics=None) -> Dict:
         """Run the five stages on a stacked witness (leading proof axis B).
 
         Returns a dict of per-proof tensors: ok, pow_ok, merkle_ok, fold_ok,
         quotient_ok (B,), alpha, zeta GL2 (B,), index (B, Q) and samples
         (B, n_samples).  `on_stage(name)`, if given, is called after each
-        stage is enqueued (chip_smoke.py records CUDA events there)."""
+        stage is enqueued (chip_smoke.py records CUDA events there).
+        `publics` (GL2 scalars by name) defaults to the AIR's own."""
         mark = on_stage or (lambda name: None)
+        if publics is None:
+            publics = _publics(self.air, self.device)
         t = self._transcript_fn(ws["obs"])
         index = t["index"]
         mark("transcript")
@@ -511,7 +528,7 @@ class TorchVerifier:
         mark("fold")
         quotient_ok = self._final_fn(
             t["alpha"], t["zeta"], ws["trace_local"], ws["trace_next"],
-            ws["quotient_chunks"], _publics(self.air, self.device),
+            ws["quotient_chunks"], publics,
             ws.get("stage2_local"), ws.get("stage2_next"),
             t.get("challenges"))
         mark("final")
@@ -532,6 +549,35 @@ class TorchVerifier:
             shape_ok=True, alpha=r["alpha"][0], zeta=r["zeta"][0],
             query_indices=r["index"][0])
 
+    def _verify_all_fn(self, w: Dict, publics: Dict) -> Dict:
+        """All five stages on one packed witness, with the publics as an
+        input (plonky25_tpu/verifier.py:752-798): verify_witnesses at
+        B = 1.  Returns ok, pow_ok, merkle_ok, fold_ok, quotient_ok (0-d),
+        alpha, zeta (GL2 scalars), index (Q,) and samples (n_samples,)."""
+        r = self.verify_witnesses(tree_map(lambda a: a[None], w),
+                                  publics=publics)
+        return tree_map(lambda a: a[0], r)
+
+    def _s_all(self, w: Dict, publics: Dict) -> Dict:
+        """_verify_all_fn as one program (the JAX verifier's jitted
+        `_s_all`): a CUDA graph on the card, captured at the first call;
+        copies of its outputs."""
+        with self._program_lock:
+            if self._program is None:
+                self._program = StaticProgram(self._verify_all_fn,
+                                              (w, publics), self.device)
+        return self._program(w, publics)
+
+    def verify_witness_fused(self, w: Dict) -> VerifyResult:
+        """Verify one packed witness in one program (see _s_all); the
+        publics are the AIR's, read at every call."""
+        r = self._s_all(w, _publics(self.air, self.device))
+        return VerifyResult(
+            ok=r["ok"], pow_ok=r["pow_ok"], merkle_ok=r["merkle_ok"],
+            fold_ok=r["fold_ok"], quotient_ok=r["quotient_ok"],
+            shape_ok=True, alpha=r["alpha"], zeta=r["zeta"],
+            query_indices=r["index"])
+
     def check_shape(self, proof: Proof) -> bool:
         """Host-side shape validation (verifier.rs:126-133, 372-374)."""
         try:
@@ -551,10 +597,23 @@ class TorchVerifier:
                  zip(gl.to_u64(bs.c0), gl.to_u64(bs.c1))]
         return FriChallenges(query_indices=t["index"][0].tolist(), betas=betas)
 
-    def verify(self, proof: Proof) -> VerifyResult:
+    def verify(self, proof: Proof, fused: bool = None) -> VerifyResult:
+        """Verify one proof: fused (verify_witness_fused) or staged
+        (verify_witness), by `fused_default(device)` when fused is None."""
         if not self.check_shape(proof):
             return _shape_fail(self.device)
-        return self.verify_witness(pack_witness(proof, self.config, self.device))
+        w = pack_witness(proof, self.config, self.device)
+        if fused is None:
+            fused = fused_default(self.device)
+        return self.verify_witness_fused(w) if fused else self.verify_witness(w)
+
+
+def fused_default(device="cuda") -> bool:
+    """Whether a single verification on `device` takes the fused program:
+    on a CUDA device (where the staged path's host dispatch dominates its
+    latency), not on the CPU, as the JAX package chooses for a TPU and a
+    CPU.  The values are the same either way (tests/test_torch_fused.py)."""
+    return torch.device(device).type == "cuda"
 
 
 _verifier_cache: Dict = {}
@@ -562,7 +621,8 @@ _verifier_cache: Dict = {}
 
 def get_verifier(air: Air, config: P3Config, device="cuda") -> TorchVerifier:
     """A cached TorchVerifier for (AIR class, proof shape, device).  As in
-    the JAX package, a cache hit takes the caller's `air` (its publics)."""
+    the JAX package, a cache hit takes the caller's `air` (its publics),
+    which the fused program copies into its input buffers at every call."""
     device = resolve_device(device)
     key = (
         type(air).__module__, type(air).__qualname__, air.name(), air.width(),

@@ -77,8 +77,10 @@ Writes, into tests/fixtures/ (every group by default):
       bytes, 202.4 s.  Group `parallel` adds, in the same file, the JAX
       package's multi-device results on 8 virtual CPU devices that
       tests/test_torch_parallel.py and test_torch_four_step.py compare
-      with (see parallel below), and group `api_gaps` the JAX values of
-      tests/test_torch_api_gaps.py (see api_gaps below).
+      with (see parallel below), group `api_gaps` the JAX values of
+      tests/test_torch_api_gaps.py (see api_gaps below), and group `fused`
+      those of the JAX one-dispatch fused verification that
+      tests/test_torch_fused.py compares with (see fused below).
 
 `chip_smoke.py` and the port's tests read these files, so the port can be
 checked on a machine without JAX.  This script may import plonky25_tpu; the
@@ -532,10 +534,10 @@ def jax_values():
     out["grind"] = {"base": base, "rest": rest, "found": bool(found),
                     "offset": int(off)}
     path = os.path.join(OUT, "torch_tests_jax_values.json")
-    if os.path.exists(path):    # keep the `parallel` and `api_gaps` values
+    if os.path.exists(path):    # keep the other groups' values
         with open(path) as f:
             kept = json.load(f)
-        for group in ("parallel", "api_gaps"):
+        for group in ("parallel", "api_gaps", "fused"):
             if group in kept:
                 out[group] = kept[group]
     with open(path, "w") as f:
@@ -904,10 +906,38 @@ def api_gaps():
     return [path]
 
 
+def fused():
+    """The JAX verifier's one-dispatch fused verification of the fib(64)
+    fixture proof and of its PoW tamper, added to torch_tests_jax_values.json
+    under `fused`: verify_witness_fused's fields (the verdict flags, alpha,
+    zeta, the query indices) and the samples of its `_s_all` program; ~40 s
+    on the CPU, most of it XLA compiling that program."""
+    from plonky25_tpu.verifier import _publics_device
+
+    with open(os.path.join(OUT, "proof_fibonacci_refimpl.json")) as f:
+        proof = proof_from_json(json.load(f))
+    air = FibonacciAir()
+    cfg = derive_config(proof, FC)
+    v = get_verifier(air, cfg)
+    out = {}
+    for name, p in (("fixture", proof), ("pow", _fib_tamper(proof, "pow"))):
+        w = pack_witness(p, cfg)
+        r = v._s_all(w, _publics_device(air))
+        out[name] = {**_j_fields(v.verify_witness_fused(w)),
+                     "samples": [int(x) for x in gl.to_u64(r["samples"])]}
+    path = os.path.join(OUT, "torch_tests_jax_values.json")
+    with open(path) as f:
+        values = json.load(f)
+    values["fused"] = out
+    with open(path, "w") as f:
+        json.dump(values, f, indent=1)
+    return [path]
+
+
 GROUPS = {"fibonacci": fibonacci, "multistage": multistage, "mmcs": mmcs,
           "keccak": keccak, "keccak_digest": keccak_digest,
           "jax_values": jax_values, "attest": attest, "composed": composed,
-          "parallel": parallel, "api_gaps": api_gaps}
+          "parallel": parallel, "api_gaps": api_gaps, "fused": fused}
 
 
 def main():
