@@ -31,8 +31,14 @@ Phases, one line each; any failure exits non-zero:
                 bytes, wall ms fused and staged in turns (median of 5),
                 one replay's device time;
   [batch]       `BatchVerifier` at B=2048 proofs x Q=100 queries: exact
-                verdicts, ms per batch, queries/s, peak memory, ms per stage
-                (CUDA events), device time (torch.profiler);
+                verdicts; its first three batches as a caller makes them
+                (the first staged, the second capturing the five stage
+                programs as CUDA graphs, the third replaying them), each
+                one's wall ms, verdicts and samples equal; then programs
+                and staged path in turns, ms per batch of each, queries/s,
+                the phase's peak memory, ms per stage (CUDA events), device
+                time of each (torch.profiler), each program's capture ms
+                and pool;
   [kernel-soa]  the lane-major kernel, each variant, against its plain
                 version and the state-major kernel, at the same sizes, both
                 sides of its crossover and every state count the prover
@@ -66,8 +72,9 @@ Phases, one line each; any failure exits non-zero:
   [batch-rlc]   `BatchVerifier` at B=2048 x Q=100 on copies of the RLC
                 proof (three Merkle batches per query), five lanes tampered
                 (pow, Merkle sibling, fold sibling, final poly, stage-2
-                leaf): exact verdicts, queries/s, stage ms, peak memory,
-                device time;
+                leaf): exact verdicts, the stage programs against the
+                staged path as in [batch]; queries/s, stage ms, peak
+                memory, device time;
   [prove-rlc]   RlcAir at 2^20 rows: accepted; a flipped stage-2 sibling, a
                 changed stage2_local value and a changed stage-2 commitment
                 rejected; first and steady latency, stage ms (stage2 its own
@@ -101,8 +108,11 @@ Phases, one line each; any failure exits non-zero:
                 (capture ms, pool bytes), launches (659 sponge chunks per
                 trace leaf), latency median of 5;
   [batch-keccak]  `BatchVerifier` at B=256 copies of that proof x Q=100,
-                four lanes tampered: exact verdicts, queries/s, stage ms,
-                peak memory;
+                four lanes tampered: exact verdicts, the first three
+                batches and the stage programs against the staged path as
+                in [batch]; the card's reserved memory back to its level
+                before the phase once its BatchVerifier is dropped;
+                queries/s, stage ms, peak memory;
   [prove-keccak-chunked]  that 2^12 x 2,633 trace proved with every memory
                 strategy of the prover at once (S=4 quotient segments, 4
                 column groups, 4 LDE column chunks, both column slabs at
@@ -121,6 +131,14 @@ Phases, one line each; any failure exits non-zero:
                 [prove-multiset] are not profiled: UNPROFILED);
   [gl3]         GF(p^3) mul, inv and div (fields/extension3.py) on the card
                 against the int Gl3 on a seeded sample;
+  [gamma-programs]  the gamma sponge's chunk programs (GAMMA_CHUNK steps
+                of the 5 chains as one CUDA graph; `_chain_chunk_fn`,
+                `_chain_states_fn`) against the eager chain on
+                compose-small's pair stream (45,568 steps): digests, and
+                the states program's ins and outs over two chunks, equal;
+                launches per derivation; wall ms of each in turns, device
+                time of 8 chunks each way, capture ms and pools; it
+                captures both programs, so the later phases replay them;
   [attest-golden]  `attest` of the fib(64) fixture proof at FriConfig(1,
                 100, 16): the sample-recording verification, the 13,477-row
                 schedule, the gammas (5 sponge chains of 15,104 steps), the
@@ -161,7 +179,8 @@ Phases, one line each; any failure exits non-zero:
                 artifacts/attestation_fibonacci.json as the inner
                 attestation: 403,335 rows, a 2^19 x 620 outer STARK (the
                 quotient in prove_on_device's segments), equal to the JAX
-                values; ms, launches by variant and peak memory per step;
+                values (its gammas through the chunk programs); ms,
+                launches by variant and peak memory per step;
   [check-composed-golden]  `check_composed` of it without the target's
                 bytes: accepted; the statement stripped and a trace width
                 of 99 refused with no launch; ms, launches and peak per
@@ -195,8 +214,11 @@ Phases, one line each; any failure exits non-zero:
                 proof byte-equal to the fixture, one all_gather_object
                 (its host ms); proofs/s beside an unmeshed batch in turns,
                 launches, peak memory;
-  [graphs]      every fused program the run captured (one per verifier
-                shape): warm-up, capture and instantiation ms, pool bytes;
+  [graphs]      every program the run captured that the module caches
+                hold (the fused verification per verifier shape, the chunk
+                programs; a BatchVerifier's stage programs are in its
+                phase's line): warm-up, capture and instantiation ms, pool
+                bytes;
   [timing]      each kernel at each path's state counts against its bound
                 and its plain version (the plain version timed once per
                 state count); both kernels, each variant, at
@@ -220,7 +242,9 @@ counts set to 0 just before it and read just after, and the counts are held
 to the numbers the path's shape gives, by variant too: a single
 verification's first call through a verifier launches its kernels twice
 (the eager warm-up before the graph's capture, then the replay;
-verify_runs), later calls once per replay.  The multi-device
+verify_runs), later calls once per replay; so does a chunk program's first
+chunk, and a BatchVerifier's second batch of a signature, which captures
+its programs (its first batch is staged: one run).  The multi-device
 phases run at world size 1 on the one card the script uses: their
 collectives, padding and per-rank slicing all run, but nothing is divided
 (the CPU tests divide over 2-4 gloo ranks).
@@ -296,6 +320,7 @@ from plonky25_torch.proof import (  # noqa: E402
     proof_to_json,
 )
 from plonky25_torch.fields import gl3  # noqa: E402
+from plonky25_torch.fields.goldilocks import GL  # noqa: E402
 from plonky25_torch.prover import BatchProver, TorchProver, prove  # noqa: E402
 from plonky25_torch.prover.prove import (  # noqa: E402
     grind_window,
@@ -703,6 +728,64 @@ def verify_runs(v):
     return 2 if v._program is None else 1
 
 
+def programs_text(stats):
+    """Capture figures of a set of stage programs, {name: stats}, as
+    text: each program's capture ms and pool, and their sums."""
+    tot = {k: sum(st[k] for st in stats.values())
+           for k in ("warmup_ms", "capture_ms", "instantiate_ms",
+                     "pool_bytes")}
+    return (f"{len(stats)} programs: warm-up {tot['warmup_ms']:.0f} ms, "
+            f"capture {tot['capture_ms']:.0f} ms, instantiation "
+            f"{tot['instantiate_ms']:.0f} ms in all; capture ms / pool MiB "
+            + ", ".join(f"{n} {st['capture_ms']:.0f} / "
+                        f"{st['pool_bytes'] / 2**20:.1f}"
+                        for n, st in stats.items()))
+
+
+def batch_first_calls(path, bv, ws, want):
+    """`ws` through a fresh BatchVerifier `bv` three times, as a caller
+    makes them: staged, then capturing the stage programs, then replaying
+    them (BatchVerifier.plan); each gives the verdicts `want` and the first
+    call's samples.  Returns each call's wall ms by plan and the programs'
+    capture figures by name."""
+    ms, first = {}, None
+    for how in ("staged", "capture", "replay"):
+        check(bv.plan(ws) == how, f"{path}: the batch's plan was "
+              f"{bv.plan(ws)}, not {how}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok, smp = bv.verify_witnesses(ws, with_samples=True)
+        torch.cuda.synchronize()
+        ms[how] = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(ok, want), f"{path}: the {how} batch's verdicts "
+              f"differ")
+        if first is None:
+            first = smp
+        check(torch.equal(smp.lo, first.lo) and torch.equal(smp.hi, first.hi),
+              f"{path}: the {how} batch's samples differ from the staged "
+              f"path's")
+    return ms, {name: dict(prog.stats)
+                for name, prog in bv.programs().items()}
+
+
+def first_calls_text(ms):
+    """A batch's first three calls (batch_first_calls) as text."""
+    return ("first batches: " + ", ".join(f"{how} {t:.1f} ms"
+                                          for how, t in ms.items()))
+
+
+def in_turns(run, rounds):
+    """Wall ms of run(fused) for fused True (the stage programs) and False
+    (staged), in turns P S S P ...: {True: [...], False: [...]}."""
+    wall = {True: [], False: []}
+    for r in range(rounds):
+        for fused in ((True, False) if r % 2 == 0 else (False, True)):
+            t0 = time.perf_counter()
+            run(fused)
+            wall[fused].append((time.perf_counter() - t0) * 1e3)
+    return wall
+
+
 def scaled(shapes, k):
     """{states: launches} times k."""
     return {n: c * k for n, c in shapes.items()}
@@ -839,20 +922,26 @@ def fused_phase(proof, fc, cfg, expected, split_max, path_launches,
 
 
 def graphs_summary():
-    """[graphs]: every fused program this run captured, one per verifier
-    shape: (a line of text, {shape: capture figures})."""
+    """[graphs]: every program this run captured and the module caches
+    still hold: the fused verification of each verifier shape and the
+    gamma sponge's chunk programs (a BatchVerifier's stage programs are
+    its own, in its phase's line): (a line of text,
+    {program: capture figures})."""
     out = {}
     for v in verifier_mod._verifier_cache.values():
         fc = v.config.fri_config
+        shape = (f"{type(v.air).__name__} 2^{v.n_phases} x "
+                 f"{v.config.trace_width}, FriConfig({fc.log_blowup}, "
+                 f"{fc.num_queries}, {fc.proof_of_work_bits})")
         if v._program is not None:
-            out[f"{type(v.air).__name__} 2^{v.n_phases} x "
-                f"{v.config.trace_width}, FriConfig({fc.log_blowup}, "
-                f"{fc.num_queries}, {fc.proof_of_work_bits})"] = dict(
-                    v._program.stats)
+            out[shape] = dict(v._program.stats)
+    for (kind, n, _), prog in attp._chain_fn_cache.items():
+        out[f"gamma {kind} n={n}"] = dict(prog.stats)
+    out = {k: st for k, st in out.items() if "capture_ms" in st}
     total = {k: sum(st[k] for st in out.values())
              for k in ("warmup_ms", "capture_ms", "instantiate_ms",
                        "pool_bytes")}
-    return (f"[graphs] {len(out)} fused programs captured in this run "
+    return (f"[graphs] {len(out)} programs captured in this run and held "
             f"(warm-up {total['warmup_ms'] / 1e3:.1f} s, capture "
             f"{total['capture_ms'] / 1e3:.1f} s, instantiation "
             f"{total['instantiate_ms'] / 1e3:.1f} s, pools "
@@ -1029,15 +1118,15 @@ def attest_step_shapes(targets, rows, att_fc, windows, b_record,
     """{step: {kernel: {states: launches}}} of attest / attest_many:
     record (the port's verifier over each same-shape group of the target
     proofs, `targets` as (P3Config, count) pairs; b_record proofs per
-    BatchVerifier pass; a group of one takes the fused program,
-    `record_runs` times over, verify_runs), gammas, trace and prove (the
-    attestation STARK's transcript and trees at its height, `windows`
-    grind windows)."""
+    BatchVerifier pass, `record_runs` times over: verify_runs for a group
+    of one, which takes the fused program; one run for a batch, which the
+    record's own BatchVerifier verifies staged), gammas,
+    trace and prove (the attestation STARK's transcript and trees at its
+    height, `windows` grind windows)."""
     rec = []
     for cfg, n in targets:
         v = get_verifier(FibonacciAir(), cfg, DEVICE)
-        rec.append({AOS: scaled(verify_path_shapes(v, n),
-                                record_runs if n == 1 else 1)})
+        rec.append({AOS: scaled(verify_path_shapes(v, n), record_runs)})
     log_n = max(len(rows) - 1, 3).bit_length()
     return {"record": add_shapes(*rec),
             "gammas": {AOS: dict(gamma_shapes(rows)), SOA: {}},
@@ -1199,15 +1288,107 @@ def composed_inputs(proof, fc, att):
             "prove_shapes": prove_shapes, "aos_sizes": aos_sizes}
 
 
+def gamma_programs_phase(att, split_max, report, lap):
+    """[gamma-programs], once per run (the attestation and the composed
+    phases each start with it): the gamma sponge's chunk programs against
+    the eager `_chain` on compose-small's pair stream, which runs eagerly
+    in seconds (the golden stream takes 30-45 s).  Captures both programs
+    of the GAMMA_LANES chains, so that every later gamma derivation and
+    'w' run replays them alone and launches what gamma_shapes and
+    trace_shapes give."""
+    if "gamma_programs" in report:
+        return
+    n, chunk = attp.GAMMA_LANES, attp.GAMMA_CHUNK
+    stream = attp._gamma_stream(
+        attp.sequence_pairs(att["composed"]["rows"]["compose_small"]), DEVICE)
+    steps = stream.shape[0]
+    progs = {"chunk": attp._chain_chunk_fn(n, DEVICE),
+             "states": attp._chain_states_fn(n, DEVICE)}
+    warm = {k: chunk if p._graph is None else 0 for k, p in progs.items()}
+
+    def eager(s=stream):
+        """The derivation's chains before the programs: one launch per
+        step from the host."""
+        state = p2.poseidon2_permute(gl.zeros((n, 12), DEVICE))
+        return gl.to_u64_np(attp._chain(state, s))
+
+    def programs(s=stream):
+        return attp._chain_digests(s)
+
+    wall = {"eager": [], "programs": []}
+    launches = {}
+    for i, (name, fn) in enumerate((("programs", programs), ("eager", eager),
+                                    ("programs", programs),
+                                    ("programs", programs), ("eager", eager))):
+        t0 = time.perf_counter()
+        digests, launches[name, i] = counted(fn)
+        if i:       # the first call captures the chunk program
+            wall[name].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first = digests
+        check((digests == first).all(), f"gamma-programs: {name} gave other "
+              f"digests than the chunk program")
+        per_call = {AOS: {n: steps + 1 + (warm["chunk"] if i == 0 else 0)},
+                    SOA: {}}
+        check_launches(f"gamma-programs {name}", launches[name, i], per_call,
+                       split_max)
+    # the states program against the recorded chain, over two chunks
+    start = p2.poseidon2_permute(gl.zeros((n, 12), DEVICE))
+    _, ins, outs = attp._chain(GL(start.lo.clone(), start.hi.clone()),
+                               stream[:2 * chunk], record=True)
+    state = start
+    for off in (0, chunk):
+        state, i_c, o_c = progs["states"](state, stream[off:off + chunk])
+        check(all(torch.equal(a, b) for a, b in zip(
+            (i_c.lo, i_c.hi, o_c.lo, o_c.hi),
+            (ins.lo[off:off + chunk], ins.hi[off:off + chunk],
+             outs.lo[off:off + chunk], outs.hi[off:off + chunk]))),
+              f"gamma-programs: the states program differs from the "
+              f"recorded chain at steps {off}..{off + chunk - 1}")
+    check(all(p._graph is not None for p in progs.values()),
+          "gamma-programs: a chain program was not captured")
+    # device time of eight chunks each way (the profiler costs ~0.2 ms a
+    # kernel: the whole stream is 137k kernels)
+    prefix = stream[:8 * chunk]
+    dev = {name: profile_device_time(lambda f=fn: f(prefix))
+           for name, fn in (("eager", eager), ("programs", programs))}
+    med = {k: statistics.median(t) for k, t in wall.items()}
+    per_step = {k: (dev[k][0] * 1e3 / (8 * chunk + 1) if dev[k] else None)
+                for k in dev}
+    dev_text = ", ".join(
+        f"{k} {dev[k][0]:.1f} ms in {dev[k][1]} kernels "
+        f"({per_step[k]:.1f} us per step; wall {1e3 * med[k] / steps:.1f})"
+        if dev[k] else f"{k} not measured (the profiler saw no kernels)"
+        for k in dev)
+    print(f"[gamma-programs] compose-small's pair stream ({steps} steps of "
+          f"{n} chains, {steps // chunk} chunks): the chunk program's "
+          f"digests equal the eager chain's; the states program's ins and "
+          f"outs the recorded chain's over two chunks; launches "
+          f"{steps + 1} per derivation either way (+{warm['chunk']} of the "
+          f"first call's warm-up); wall median of 2 in turns: eager "
+          f"{med['eager']:.1f} ms, programs {med['programs']:.1f} ms; device"
+          f" time of 8 chunks: {dev_text}; chunk "
+          + program_text(progs["chunk"].stats) + "; states "
+          + program_text(progs["states"].stats))
+    report["gamma_programs"] = {
+        "steps": steps, "wall_ms": wall,
+        "device_8_chunks": {k: d and d[:2] for k, d in dev.items()},
+        "device_us_per_step": per_step,
+        "stats": {k: dict(p.stats) for k, p in progs.items()}}
+    lap("gamma-programs")
+
+
 def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
                        path_shapes, report, lap):
-    """[attest-golden], [check-golden], [attest-small], [attest-many]."""
+    """[gamma-programs] (once per run), [attest-golden], [check-golden],
+    [attest-small], [attest-many]."""
     golden_text, golden, att_fc = (att[k] for k in
                                    ("golden_text", "golden", "att_fc"))
     rows_g, rows_m, att_logs = att["rows_g"], att["rows_m"], att["logs"]
     small, small_fc, small_att = (att[k] for k in
                                   ("small", "small_fc", "small_att"))
     copies = att["copies"]
+    gamma_programs_phase(att, split_max, report, lap)
     # ---- attest the golden fib(64) proof: the committed bundle, byte for
     # byte (made by the JAX package's device prover)
     fib = FibonacciAir()
@@ -1342,6 +1523,7 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
     lap("attest-small")
     # ---- attest_many of `copies` copies of the golden proof
     clock = StepClock()
+    runs = 1    # attest_many's BatchVerifier is its own: its one batch is staged
     t0 = time.perf_counter()
     mb, path_launches["attest_many"] = counted(
         lambda: attest_mod.attest_many([proof] * copies, fib, fc,
@@ -1357,7 +1539,7 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
     am_windows = (mb.stark.opening_proof.fri_proof.pow_witness
                   // grind_window(att_fc) + 1)
     am_steps = attest_step_shapes([(cfg, copies)], rows_m, att_fc,
-                                  am_windows, copies)
+                                  am_windows, copies, runs)
     check_steps("attest_many", clock, am_steps, split_max)
     path_shapes["attest_many"] = add_shapes(*am_steps.values())
     check_launches("attest_many", path_launches["attest_many"],
@@ -1431,13 +1613,14 @@ def hold_to_jax(path, got, want, log_n):
 
 def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
                     report, lap):
-    """[compose-small], [attest-attestation], [compose-golden],
-    [check-composed-golden]."""
+    """[gamma-programs] (once per run), [compose-small],
+    [attest-attestation], [compose-golden], [check-composed-golden]."""
     cin = att["composed"]
     want, rows, logs = cin["expected"], cin["rows"], cin["logs"]
     sp, inner_s = cin["small_proofs"], cin["small_inner"]
     small_fc, small_att, att_fc = att["small_fc"], att["small_att"], att["att_fc"]
     fib = FibonacciAir()
+    gamma_programs_phase(att, split_max, report, lap)
     torch.cuda.empty_cache()
 
     # ---- the small composition: the JAX values, the int oracle, the
@@ -1742,13 +1925,13 @@ def gl_equal(a, b):
 
 
 def multi_device_phases(proof, fc, cfg, fixture_text, expected, ws_batch,
-                        want_batch, prove_sha, split_max, path_launches,
-                        path_shapes, report, lap):
+                        want_batch, bv_batch, prove_sha, split_max,
+                        path_launches, path_shapes, report, lap):
     """[nccl], [sharded], [multihost], [four-step], [prove-lde-mesh],
     [batch-prove-mesh] through one world-size-1 NCCL process group, which
     they destroy at the end.  prove_sha is the sha256 of the unmeshed
-    fib(2^LOG_N) proof's compact JSON; ws_batch and want_batch are
-    [batch]'s stacked witness and verdicts."""
+    fib(2^LOG_N) proof's compact JSON; ws_batch, want_batch and bv_batch
+    are [batch]'s stacked witness, verdicts and BatchVerifier."""
     fib = FibonacciAir()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1775,8 +1958,9 @@ def multi_device_phases(proof, fc, cfg, fixture_text, expected, ws_batch,
         _sharded_phase(proof, fc, cfg, expected, mesh, fib, split_max,
                        path_launches, path_shapes, report)
         lap("sharded")
-        _multihost_phase(proof, cfg, ws_batch, want_batch, host_mesh, fib,
-                         split_max, path_launches, path_shapes, report)
+        _multihost_phase(proof, cfg, ws_batch, want_batch, bv_batch,
+                         host_mesh, fib, split_max, path_launches,
+                         path_shapes, report)
         lap("multihost")
         _four_step_phase(mesh, report)
         lap("four-step")
@@ -1846,7 +2030,7 @@ def _sharded_phase(proof, fc, cfg, expected, mesh, fib, split_max,
                          "launches": path_launches["verify_sharded"]}
 
 
-def _multihost_phase(proof, cfg, ws_batch, want_batch, host_mesh, fib,
+def _multihost_phase(proof, cfg, ws_batch, want_batch, bv, host_mesh, fib,
                      split_max, path_launches, path_shapes, report):
     mv = MultiHostBatchVerifier(fib, cfg, host_mesh, device=DEVICE)
     b, q = ws_batch["obs"].shape[0], cfg.fri_config.num_queries
@@ -1863,9 +2047,11 @@ def _multihost_phase(proof, cfg, ws_batch, want_batch, host_mesh, fib,
         AOS: verify_path_shapes(get_verifier(fib, cfg, DEVICE), b), SOA: {}}
     check_launches("verify_multihost", path_launches["verify_multihost"],
                    path_shapes["verify_multihost"], split_max)
-    # in turns with BatchVerifier on the same witness: its time in this
-    # phase, not [batch]'s, minutes earlier
-    bv = BatchVerifier(fib, cfg, device=DEVICE)
+    # in turns with [batch]'s BatchVerifier (its programs of this
+    # signature, replayed) on the same witness: its time in this phase,
+    # not [batch]'s, minutes earlier
+    check(bv.plan(ws_batch) == "replay", "multihost: [batch]'s "
+          "BatchVerifier holds no programs of its batch")
     runs, bv_runs = [], []
     torch.cuda.reset_peak_memory_stats()
     for verify, times in ((mv, runs), (bv, bv_runs), (bv, bv_runs),
@@ -2401,40 +2587,46 @@ def main(argv=None):
     want = torch.ones(B, dtype=torch.bool, device=DEVICE)
     want[lanes] = False
 
-    def verify_batch(on_stage=None):
-        return bv.verify_witnesses(ws, on_stage)
+    def verify_batch(on_stage=None, fused=None):
+        return bv.verify_witnesses(ws, on_stage, fused=fused)
 
-    check(torch.equal(verify_batch(), want), "batch verdicts differ")
+    torch.cuda.reset_peak_memory_stats()
+    first_ms, progs = batch_first_calls("batch", bv, ws, want)
     ok, path_launches["verify_batch"] = counted(verify_batch)
     check(torch.equal(ok, want), "batch verdicts differ")
     check_launches("verify_batch", path_launches["verify_batch"],
                    path_shapes["verify_batch"], split_max)
-    runs = []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
-        t0 = time.perf_counter()
-        check(torch.equal(verify_batch(), want), "batch verdicts differ")
-        runs.append((time.perf_counter() - t0) * 1e3)
+    wall = in_turns(lambda fused: check(torch.equal(
+        verify_batch(fused=fused), want), "batch verdicts differ"), 3)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     clock = StageClock()
     verify_batch(clock)
     stage_ms = clock.ms()
-    ms_batch = statistics.median(runs)
+    runs = wall[True]
+    ms_batch, ms_staged = (statistics.median(wall[k]) for k in (True, False))
     devb, profb = device_summary(profile_device_time(verify_batch), ms_batch)
+    devs, profs = device_summary(profile_device_time(
+        lambda: verify_batch(fused=False)), ms_staged)
     qps = B * v.Q / (ms_batch / 1e3)
     print(f"[batch] B={B} x Q={v.Q}: verdicts exact ({len(lanes)} tampered "
-          f"lanes rejected); {path_launches['verify_batch'][AOS]} kernel "
-          f"launches; {ms_batch:.1f} ms per batch (median of {len(runs)}), "
-          f"{qps:.0f} queries/s; peak {peak_gb:.2f} GB; stage ms: "
+          f"lanes rejected), the stage programs' verdicts and samples the "
+          f"staged path's; {path_launches['verify_batch'][AOS]} kernel "
+          f"launches per replay of the five; {ms_batch:.1f} ms per batch "
+          f"(median of {len(runs)}, in turns with staged {ms_staged:.1f} ms)"
+          f", {qps:.0f} queries/s; peak {peak_gb:.2f} GB (the phase, "
+          f"captures included); stage ms: "
           + ", ".join(f"{k} {t:.1f}" for k, t in stage_ms.items())
-          + f"; {devb}")
-    batch_in = (ws, want.clone())       # [multihost] verifies them again
+          + f"; programs: {devb}; staged: {devs}; "
+          + first_calls_text(first_ms) + "; " + programs_text(progs))
+    batch_in = (ws, want.clone(), bv)   # [multihost] verifies them again
     want_batch = batch_in[1]            # and [tooling]
     report["batch"] = {"B": B, "Q": v.Q, "ms_runs": runs, "ms": ms_batch,
+                       "staged_ms_runs": wall[False], "staged_ms": ms_staged,
                        "queries_per_s": qps, "peak_allocated_gb": peak_gb,
                        "stage_ms": stage_ms,
                        "launches": path_launches["verify_batch"],
-                       "profile": profb}
+                       "profile": profb, "staged_profile": profs,
+                       "first_ms": first_ms, "programs": progs}
 
     lap("batch")
     # ---- lane-major kernel against its plain version and the other kernel
@@ -2691,38 +2883,42 @@ def main(argv=None):
     want = torch.ones(B, dtype=torch.bool, device=DEVICE)
     want[lanes] = False
 
-    def verify_batch_rlc(on_stage=None):
-        return bv_rlc.verify_witnesses(ws_rlc, on_stage)
+    def verify_batch_rlc(on_stage=None, fused=None):
+        return bv_rlc.verify_witnesses(ws_rlc, on_stage, fused=fused)
 
+    torch.cuda.reset_peak_memory_stats()
+    first_ms, progs = batch_first_calls("batch-rlc", bv_rlc, ws_rlc, want)
     ok, path_launches["verify_batch_rlc"] = counted(verify_batch_rlc)
     check(torch.equal(ok, want), "batch-rlc verdicts differ")
     check_launches("verify_batch_rlc", path_launches["verify_batch_rlc"],
                    path_shapes["verify_batch_rlc"], split_max)
-    runs = []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
-        t0 = time.perf_counter()
-        check(torch.equal(verify_batch_rlc(), want), "batch-rlc verdicts differ")
-        runs.append((time.perf_counter() - t0) * 1e3)
+    wall = in_turns(lambda fused: check(torch.equal(
+        verify_batch_rlc(fused=fused), want), "batch-rlc verdicts differ"), 3)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     clock = StageClock()
     verify_batch_rlc(clock)
     stage_ms = clock.ms()
-    ms_batch = statistics.median(runs)
+    runs = wall[True]
+    ms_batch, ms_staged = (statistics.median(wall[k]) for k in (True, False))
     devb, profb = device_summary(profile_device_time(verify_batch_rlc), ms_batch)
     qps = B * v_rlc.Q / (ms_batch / 1e3)
     print(f"[batch-rlc] B={B} x Q={v_rlc.Q} RlcAir proofs (3 batches per "
           f"query): verdicts exact ({len(lanes)} tampered lanes: "
-          f"{', '.join(kinds)}); {path_launches['verify_batch_rlc'][AOS]} "
-          f"kernel launches; {ms_batch:.1f} ms per batch (median of 3), "
-          f"{qps:.0f} queries/s; peak {peak_gb:.2f} GB; stage ms: "
+          f"{', '.join(kinds)}), the stage programs' verdicts and samples "
+          f"the staged path's; {path_launches['verify_batch_rlc'][AOS]} "
+          f"kernel launches; {ms_batch:.1f} ms per batch (median of 3, in "
+          f"turns with staged {ms_staged:.1f} ms), {qps:.0f} queries/s; peak"
+          f" {peak_gb:.2f} GB (the phase); stage ms: "
           + ", ".join(f"{k} {t:.1f}" for k, t in stage_ms.items())
-          + f"; {devb}")
+          + f"; {devb}; " + first_calls_text(first_ms) + "; "
+          + programs_text(progs))
     report["batch_rlc"] = {"B": B, "Q": v_rlc.Q, "ms_runs": runs,
-                           "ms": ms_batch, "queries_per_s": qps,
+                           "ms": ms_batch, "staged_ms_runs": wall[False],
+                           "staged_ms": ms_staged, "queries_per_s": qps,
                            "peak_allocated_gb": peak_gb, "stage_ms": stage_ms,
                            "launches": path_launches["verify_batch_rlc"],
-                           "profile": profb}
+                           "profile": profb, "first_ms": first_ms,
+                           "programs": progs}
 
     lap("batch-rlc")
     # ---- RlcAir at 2^LOG_N rows
@@ -2965,6 +3161,8 @@ def main(argv=None):
 
     lap("verify-keccak")
     # ---- BatchVerifier on B_KECCAK copies of that proof, four tampered
+    torch.cuda.empty_cache()
+    reserved_before = torch.cuda.memory_reserved()
     bvk = BatchVerifier(kair, cfg_k, device=DEVICE)
     check(bvk.base is v_keccak, "the Keccak verifier was not the shape's")
     wk = pack_witness(kbig, cfg_k, DEVICE)
@@ -2976,42 +3174,60 @@ def main(argv=None):
     want = torch.ones(B_KECCAK, dtype=torch.bool, device=DEVICE)
     want[lanes] = False
 
-    def verify_batch_keccak(on_stage=None):
-        return bvk.verify_witnesses(wsk, on_stage)
+    def verify_batch_keccak(on_stage=None, fused=None):
+        return bvk.verify_witnesses(wsk, on_stage, fused=fused)
 
     torch.cuda.reset_peak_memory_stats()
+    first_ms, progs = batch_first_calls("batch-keccak", bvk, wsk, want)
     ok, path_launches["verify_batch_keccak"] = counted(verify_batch_keccak)
     check(torch.equal(ok, want), "batch-keccak verdicts differ")
     check_launches("verify_batch_keccak", path_launches["verify_batch_keccak"],
                    path_shapes["verify_batch_keccak"], split_max)
-    runs = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        check(torch.equal(verify_batch_keccak(), want),
-              "batch-keccak verdicts differ")
-        runs.append((time.perf_counter() - t0) * 1e3)
+    wall = in_turns(lambda fused: check(torch.equal(
+        verify_batch_keccak(fused=fused), want),
+        "batch-keccak verdicts differ"), 2)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     clock = StageClock()
     verify_batch_keccak(clock)
     stage_ms = clock.ms()
-    ms_batch = statistics.median(runs)
+    runs = wall[True]
+    ms_batch, ms_staged = (statistics.median(wall[k]) for k in (True, False))
     devb, profb = UNPROFILED, None
     qps = B_KECCAK * v_keccak.Q / (ms_batch / 1e3)
     print(f"[batch-keccak] B={B_KECCAK} x Q={v_keccak.Q} KeccakAir 2^"
           f"{KECCAK_LOG_N} proofs: verdicts exact ({len(lanes)} tampered "
-          f"lanes: {', '.join(TAMPERED)}); "
+          f"lanes: {', '.join(TAMPERED)}), the stage programs' verdicts and "
+          f"samples the staged path's; "
           f"{path_launches['verify_batch_keccak'][AOS]} kernel launches; "
-          f"{ms_batch:.1f} ms per batch (median of 3), {qps:.0f} queries/s, "
-          f"{B_KECCAK / (ms_batch / 1e3):.1f} proofs/s; peak {peak_gb:.2f} GB;"
-          f" stage ms: " + ", ".join(f"{k} {t:.1f}" for k, t in stage_ms.items())
-          + f"; {devb}")
+          f"{ms_batch:.1f} ms per batch (median of 2, in turns with staged "
+          f"{ms_staged:.1f} ms), {qps:.0f} queries/s, "
+          f"{B_KECCAK / (ms_batch / 1e3):.1f} proofs/s; peak {peak_gb:.2f} GB"
+          f" (the phase); stage ms: "
+          + ", ".join(f"{k} {t:.1f}" for k, t in stage_ms.items())
+          + f"; {devb}; " + first_calls_text(first_ms) + "; "
+          + programs_text(progs))
     report["batch_keccak"] = {
         "B": B_KECCAK, "Q": v_keccak.Q, "ms_runs": runs, "ms": ms_batch,
+        "staged_ms_runs": wall[False], "staged_ms": ms_staged,
         "queries_per_s": qps, "peak_allocated_gb": peak_gb,
         "stage_ms": stage_ms, "launches": path_launches["verify_batch_keccak"],
-        "profile": profb}
-    del wsk, kbig
+        "profile": profb, "first_ms": first_ms, "programs": progs}
+    # the programs, their pool and buffers go with their BatchVerifier,
+    # before the provers' phases
+    del bvk, wsk, kbig
     torch.cuda.empty_cache()
+    reserved_after = torch.cuda.memory_reserved()
+    pools = sum(st["pool_bytes"] for st in progs.values())
+    check(reserved_after - reserved_before < pools / 4,
+          f"batch-keccak: {(reserved_after - reserved_before) / 2**20:.0f} "
+          f"MiB more reserved after the phase than before it (the programs' "
+          f"pools: {pools / 2**20:.0f} MiB)")
+    print(f"[batch-keccak] its BatchVerifier dropped: "
+          f"{reserved_before / 2**30:.2f} GiB reserved before the phase, "
+          f"{reserved_after / 2**30:.2f} GiB after (the programs' pools "
+          f"{pools / 2**30:.2f} GiB)")
+    report["batch_keccak"].update(reserved_before=reserved_before,
+                                  reserved_after=reserved_after)
 
     lap("batch-keccak")
     # ---- the 2^12 Keccak trace with every memory strategy at once
@@ -3084,10 +3300,13 @@ def main(argv=None):
         f"proof of its trace")
     bvk8 = BatchVerifier(kair, cfg_k, device=DEVICE)
     lanes8 = kproofs + [tamper(kproofs[1], "final_poly")]
+    runs = 1                # a BatchVerifier's first batch is staged
     oks, path_launches["verify_batch_prove_keccak"] = counted(
         lambda: bvk8.verify(lanes8))
     check(oks.tolist() == [True] * B_KECCAK_PROVE + [False],
           f"batch-prove-keccak: BatchVerifier verdicts {oks.tolist()}")
+    path_shapes["verify_batch_prove_keccak"][AOS] = scaled(
+        path_shapes["verify_batch_prove_keccak"][AOS], runs)
     check_launches("verify_batch_prove_keccak",
                    path_launches["verify_batch_prove_keccak"],
                    path_shapes["verify_batch_prove_keccak"], split_max)

@@ -23,7 +23,9 @@ int oracle of `refimpl`.  `utils.profiling` times stages and traces runs
 integer work and gives the H100's bound for it.  On the card a single
 verification replays one captured CUDA graph of its five stages
 (`TorchVerifier.verify(proof, fused=None)`, `utils.graphs`), as the JAX
-package runs one jitted program on a TPU.  Entry points take `device=`
+package runs one jitted program on a TPU; a `BatchVerifier` captures its
+five stages as programs at the second batch of a shape and replays them
+from then on.  Entry points take `device=`
 ("cuda" by default) and never move to the CPU on their own.
 
 The package imports torch, numpy and the standard library only: nothing of

@@ -167,7 +167,8 @@ def _record_verifications_device(proofs: List[Proof], air,
                                  device="cuda") -> List[List[int]]:
     """Batched sample-recording verification: same-shape proofs share one
     pass of the port's verifier stages (BatchVerifier.verify_witnesses
-    with_samples).  Raises CannotAttest naming the first failing proof."""
+    with_samples; a BatchVerifier's first batch takes the staged path).
+    Raises CannotAttest naming the first failing proof."""
     groups: Dict[tuple, List[int]] = {}
     cfgs = []
     for i, p in enumerate(proofs):

@@ -28,10 +28,12 @@ in the checker.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .challenger import SymbolicChallenger
 from .constants import GOLDILOCKS_P as P, EXT_DEGREE, RATE, WIDTH
@@ -87,6 +89,7 @@ from .refimpl.domains import TwoAdicMultiplicativeCoset
 from .refimpl.field import Gl, Gl2
 from .refimpl.poseidon2 import poseidon2
 from .utils.bits import log2_strict
+from .utils.graphs import StaticProgram
 
 ZERO2 = (0, 0)
 ONE2 = (1, 0)
@@ -1058,11 +1061,11 @@ def _chain(state: GL, pairs: GL, record: bool = False):
     overwrites lanes 0..1 of every chain's state with pairs[t] and
     permutes: one Poseidon2 call over the n states (one state-major kernel
     launch on the card) and two in-place lane writes, with no host sync.
-    JAX runs this as a lax.scan of an unrolled permutation; eager PyTorch
-    runs the steps one after the other.  The lane writes go into `state`
-    and each step's output in place; with `record`, each step writes a
-    copy instead, and every step's input and output states come back too,
-    GL (steps, n, 12) each."""
+    Eagerly, one step after the other; _chain_chunk_fn and
+    _chain_states_fn run GAMMA_CHUNK steps of it as one program.  The lane
+    writes go into `state` and each step's output in place; with `record`,
+    each step writes a copy instead, and every step's input and output
+    states come back too, GL (steps, n, 12) each."""
     ins, outs = [], []
     for t in range(pairs.shape[0]):
         if record:
@@ -1076,6 +1079,80 @@ def _chain(state: GL, pairs: GL, record: bool = False):
     if record:
         return state, gl.stack(ins), gl.stack(outs)
     return state
+
+
+_chain_fn_cache: Dict = {}
+_chain_fn_lock = threading.Lock()
+
+
+def _chunk(state: GL, pairs: GL) -> GL:
+    """_chain on a copy of `state`: a program's input buffer stays as it
+    was loaded."""
+    return _chain(GL(state.lo.clone(), state.hi.clone()), pairs)
+
+
+def _chunk_states(state: GL, pairs: GL):
+    return _chain(state, pairs, record=True)
+
+
+def _chain_program(kind: str, fn, n: int, device) -> StaticProgram:
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        # "cuda" and the tensors' "cuda:0" name one device
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (kind, n, str(device))
+    with _chain_fn_lock:
+        prog = _chain_fn_cache.get(key)
+        if prog is None:
+            template = (gl.zeros((n, WIDTH), device),
+                        gl.zeros((GAMMA_CHUNK, n, 2), device))
+            prog = _chain_fn_cache[key] = StaticProgram(fn, template, device)
+    return prog
+
+
+def _chain_chunk_fn(n: int, device="cuda") -> StaticProgram:
+    """GAMMA_CHUNK sponge steps of n chains as one program, (state GL
+    (n, 12), pairs GL (GAMMA_CHUNK, n, 2)) -> state: the JAX package's
+    jitted lax.scan chunk (plonky25_tpu/attest_program.py:1053).  On the
+    card one CUDA graph of GAMMA_CHUNK x (two lane writes and a
+    state-major permutation launch), on the CPU _chain itself
+    (utils/graphs.py); one per (n, device), made at the first call."""
+    return _chain_program("chunk", _chunk, n, device)
+
+
+def _chain_states_fn(n: int, device="cuda") -> StaticProgram:
+    """_chain_chunk_fn that also returns every step's input and output
+    state, -> (state, ins, outs), GL (GAMMA_CHUNK, n, 12) each: the trace
+    builder's per-row sponge witness of the long 'w' chains
+    (plonky25_tpu/attest_program.py:1096)."""
+    return _chain_program("states", _chunk_states, n, device)
+
+
+def _gamma_stream(pairs: List[Tuple[int, int]], device) -> GL:
+    """The padded pair stream (padded_pair_count) as GL (lane_len,
+    GAMMA_LANES, 2) on `device`, step axis first: lane k hashes slice k."""
+    total = padded_pair_count(len(pairs))
+    padded = np.zeros((total, 2), np.uint64)
+    if pairs:
+        padded[:len(pairs)] = np.asarray(pairs, np.uint64)
+    sliced = padded.reshape(GAMMA_LANES, total // GAMMA_LANES, 2)
+    return gl.from_u64(np.ascontiguousarray(sliced.transpose(1, 0, 2)),
+                       device)
+
+
+def _chain_digests(stream: GL) -> np.ndarray:
+    """The GAMMA_LANES sub-chains over `stream` (_gamma_stream), each
+    from the permutation of the zero state (the trace's empty 'l'
+    chain-start row): their final states, uint64 (GAMMA_LANES, 12).  The
+    chunk program replays once per GAMMA_CHUNK steps, each chunk loaded
+    from the stream on the device; the states come back once."""
+    state = poseidon2_permute(gl.zeros((GAMMA_LANES, WIDTH), stream.device))
+    prog = _chain_chunk_fn(GAMMA_LANES, stream.device)
+    with prog.lock:
+        for off in range(0, stream.shape[0], GAMMA_CHUNK):
+            prog.load(state, stream[off:off + GAMMA_CHUNK])
+            state = prog.run()
+        return gl.to_u64_np(state)
 
 
 def padded_pair_count(n_pairs: int) -> int:
@@ -1100,25 +1177,12 @@ def derive_gammas_from_pairs(n_rows: int, pairs: List[Tuple[int, int]],
     recomputes: one 'w' row per pair, one cap row per sub-chain digest,
     one 'g' row for the combine (docs/SOUNDNESS.md "Recursion
     depth...") — while the derivation's serial depth is one slice, not
-    the whole stream.  On `device` the whole padded stream moves once;
-    the GAMMA_LANES chains step together (_chain), and the digests come
-    back once."""
+    the whole stream.  On `device` the whole padded stream moves once,
+    the GAMMA_LANES chains step together through the chunk program
+    (_chain_digests), and the digests come back once."""
     device = resolve_device(device)
     n_pairs = len(pairs)
-    total = padded_pair_count(n_pairs)
-    padded = np.zeros((total, 2), np.uint64)
-    if n_pairs:
-        padded[:n_pairs] = np.asarray(pairs, np.uint64)
-    lane_len = total // GAMMA_LANES
-    # (lane_len, GAMMA_LANES, 2): step axis first, lane k = slice k
-    sliced = np.ascontiguousarray(
-        padded.reshape(GAMMA_LANES, lane_len, 2).transpose(1, 0, 2))
-
-    # sub-chains start from the permutation of the zero state (the
-    # trace's empty 'l' chain-start row), then absorb their slice
-    state = poseidon2_permute(gl.zeros((GAMMA_LANES, WIDTH), device))
-    state = _chain(state, gl.from_u64(sliced, device))
-    digests = gl.to_u64_np(state)                  # (GAMMA_LANES, 12)
+    digests = _chain_digests(_gamma_stream(pairs, device))
     root_in = np.zeros((1, WIDTH), np.uint64)
     for k in range(GAMMA_LANES):
         root_in[0, 2 * k], root_in[0, 2 * k + 1] = digests[k][0], digests[k][1]
@@ -1374,9 +1438,10 @@ def build_trace_cols(rows: List[VRow], gamma: Tuple[int, int],
 
     # Long all-'w' chains (the compression sub-chains: an empty 'l'
     # start + tens of thousands of private absorbs) resolve through the
-    # gamma sponge's chain (_chain), which also keeps every intermediate
-    # state, pulled to the host once per GAMMA_CHUNK steps; the lanes
-    # step together (equal length by construction).
+    # gamma sponge's states program (_chain_states_fn), one replay per
+    # GAMMA_CHUNK steps that also keeps every intermediate state, pulled
+    # to the host once per chunk; the lanes step together (equal length
+    # by construction).
     def _is_w_run(c):
         r0 = rows[c[0]]
         return (len(c) > 64 and r0.sel == "l" and not r0.absorbed
@@ -1387,6 +1452,8 @@ def build_trace_cols(rows: List[VRow], gamma: Tuple[int, int],
         assert len({len(c) for c in w_runs}) == 1, \
             "compression sub-chains must have equal length"
         wlen = len(w_runs[0]) - 1
+        assert wlen % GAMMA_CHUNK == 0, \
+            "compression sub-chains are whole GAMMA_CHUNKs (padded_pair_count)"
         starts = np.asarray([c[0] for c in w_runs])
         # the empty 'l' start: in = zeros, out = perm(zeros)
         p0 = perm_host(np.zeros((len(w_runs), WIDTH), np.uint64))
@@ -1398,16 +1465,19 @@ def build_trace_cols(rows: List[VRow], gamma: Tuple[int, int],
             for t, j in enumerate(c[1:]):
                 prs[t, ci, 0] = rows[j].priv[0] % P
                 prs[t, ci, 1] = rows[j].priv[1] % P
+        stream = gl.from_u64(prs, device)
         state = gl.from_u64(p0, device)
-        for off in range(0, wlen, GAMMA_CHUNK):
-            chunk = gl.from_u64(prs[off:off + GAMMA_CHUNK], device)
-            state, ins_c, outs_c = _chain(state, chunk, record=True)
-            ins_h = gl.to_u64_np(ins_c)    # (C, n_runs, 12)
-            outs_h = gl.to_u64_np(outs_c)
-            for ci, c in enumerate(w_runs):
-                rows_idx = np.asarray(c[1 + off:1 + off + len(ins_h)])
-                states_np[rows_idx] = ins_h[:, ci]
-                out_np[rows_idx] = outs_h[:, ci]
+        prog = _chain_states_fn(len(w_runs), device)
+        with prog.lock:
+            for off in range(0, wlen, GAMMA_CHUNK):
+                prog.load(state, stream[off:off + GAMMA_CHUNK])
+                state, ins_c, outs_c = prog.run()
+                ins_h = gl.to_u64_np(ins_c)    # (C, n_runs, 12)
+                outs_h = gl.to_u64_np(outs_c)
+                for ci, c in enumerate(w_runs):
+                    rows_idx = np.asarray(c[1 + off:1 + off + GAMMA_CHUNK])
+                    states_np[rows_idx] = ins_h[:, ci]
+                    out_np[rows_idx] = outs_h[:, ci]
 
     # Round A: remaining chains with static inputs ('l'-started)
     group_a = [c for c in chains

@@ -18,7 +18,16 @@ So a `StaticProgram` owns its inputs:
     buffers: the caller chose that device, and the CPU tests go through
     the same load, run and clone;
   * calling the program is load + run under its lock and returns clones of
-    the outputs, which the next replay leaves alone.
+    the outputs, which the next replay leaves alone.  A caller that chains
+    runs (the gamma sponge's chunks, BatchVerifier's five stages) holds
+    `lock` across them and loads one run's outputs into the next program
+    itself: `load` copies them on the device before the replay that would
+    overwrite them, so no clone is needed.
+
+Programs that always run one after the other, in the order they were
+captured, may share one memory pool (`pool`, from
+torch.cuda.graph_pool_handle()): a later capture reuses the blocks that an
+earlier one freed, never those of its outputs, which the program holds.
 
 A failed capture or replay raises; nothing runs the function eagerly in
 its place.  The Poseidon2 wrappers count launches in Python, which runs at
@@ -28,7 +37,7 @@ every replay.  A tensor that a module cache first makes during the capture
 would live in the graph's memory pool, which replays overwrite; the
 program checks that the caches did not grow during the capture.
 `stats` holds the warm-up, capture, instantiation and first-replay times
-and the bytes of the graph's memory pool.
+and the bytes by which the capture grew the graph's memory pool.
 """
 
 from __future__ import annotations
@@ -59,9 +68,10 @@ class StaticProgram:
     """`fn(*args)` on buffers of its own: a CUDA graph on the card, the
     function itself on the CPU (module docstring)."""
 
-    def __init__(self, fn: Callable, template: tuple, device):
+    def __init__(self, fn: Callable, template: tuple, device, pool=None):
         self.fn = fn
         self.device = torch.device(device)
+        self.pool = pool
         self.signature = tree_signature(template)
         self.inputs = tree_map(
             lambda a: torch.empty(a.shape, dtype=a.dtype, device=self.device),
@@ -70,7 +80,7 @@ class StaticProgram:
         self._graph = None
         self._outputs = None
         self._launches = None
-        self._lock = threading.Lock()
+        self.lock = threading.Lock()
 
     def load(self, *args) -> None:
         """Copy `args` (the template's structure and shapes) into the
@@ -98,7 +108,7 @@ class StaticProgram:
 
     def __call__(self, *args):
         """Load `args`, run, and return clones of the outputs."""
-        with self._lock:
+        with self.lock:
             self.load(*args)
             return tree_map(torch.clone, self.run())
 
@@ -123,7 +133,8 @@ class StaticProgram:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
         with poseidon2.recording_launches() as launches:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
                 outputs = self.fn(*self.inputs)
         self.stats["capture_ms"] = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()

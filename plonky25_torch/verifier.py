@@ -16,10 +16,13 @@ Every stage takes a leading proof axis B: one proof is a batch of one, and
 stages flatten (B, Q) into one lane axis (as the JAX package's
 _batched_*_fn do), so each sponge chunk or path level is one Poseidon2
 launch over the whole batch.  `verify_witnesses` runs the stages one
-after the other on the caller's device (the staged path: the batch,
-sharded and multi-host verifiers and the stage clocks take it).
+after the other on the caller's device (the staged path: the sharded and
+multi-host verifiers, the stage clocks, and the batch verifier's first
+batch of a shape take it); its `run=` lets the batch verifier run each
+stage as a program of its own.
 
-A single proof can also take the fused path, as in the JAX package:
+A single proof can also take the fused path, as in the JAX package
+(parallel/batch.py's BatchVerifier has its own, one program per stage):
 `_verify_all_fn` is the five stages on one proof, and `_s_all` runs it as
 one program (utils/graphs.py's StaticProgram), where JAX runs
 `jax.jit(_verify_all_fn)`: on the card a CUDA graph captured at the
@@ -494,41 +497,47 @@ class TorchVerifier:
 
     # ------------------------------------------------------------ entry points
     def verify_witnesses(self, ws: Dict, on_stage=None,
-                         publics=None) -> Dict:
+                         publics=None, run=None) -> Dict:
         """Run the five stages on a stacked witness (leading proof axis B).
 
         Returns a dict of per-proof tensors: ok, pow_ok, merkle_ok, fold_ok,
         quotient_ok (B,), alpha, zeta GL2 (B,), index (B, Q) and samples
         (B, n_samples).  `on_stage(name)`, if given, is called after each
         stage is enqueued (chip_smoke.py records CUDA events there).
-        `publics` (GL2 scalars by name) defaults to the AIR's own."""
+        `publics` (GL2 scalars by name) defaults to the AIR's own.
+        `run(name, fn, *args)` runs each stage, by the JAX BatchVerifier's
+        program names `_t`, `_b`, `_r`, `_f`, `_fin` (parallel/batch.py
+        runs them as its stage programs); by default it calls fn(*args)."""
         mark = on_stage or (lambda name: None)
+        run = run or (lambda name, fn, *args: fn(*args))
         if publics is None:
             publics = _publics(self.air, self.device)
-        t = self._transcript_fn(ws["obs"])
+        t = run("_t", self._transcript_fn, ws["obs"])
         index = t["index"]
         mark("transcript")
         commits = [t["trace_commit"]]
         if self.s2w:
             commits.append(t["stage2_commit"])
         commits.append(t["quotient_commit"])
-        merkle_ok = self._batched_batch_all_fn(
-            index, ws["batch_values"], ws["batch_sibs"], commits).all(dim=-1)
+        merkle_ok = run("_b", self._batched_batch_all_fn, index,
+                        ws["batch_values"], ws["batch_sibs"],
+                        commits).all(dim=-1)
         mark("merkle")
-        ro_stack = self._ro_fn(
-            index, t["zeta"], t["zeta_next"], t["alpha_fri"],
-            ws["batch_values"], ws["trace_local"], ws["trace_next"],
-            ws["quotient_chunks"], ws.get("stage2_local"),
+        ro_stack = run(
+            "_r", self._ro_fn, index, t["zeta"], t["zeta_next"],
+            t["alpha_fri"], ws["batch_values"], ws["trace_local"],
+            ws["trace_next"], ws["quotient_chunks"], ws.get("stage2_local"),
             ws.get("stage2_next"))
         mark("reduced_openings")
-        fold_ok = self._batched_fold_fn(
-            index, t["phase_commits"], t["betas_stack"],
-            ws["fold_sibling_values"], ro_stack, ws["fold_sibs"],
-            ws["final_poly"])
+        fold_ok = run(
+            "_f", self._batched_fold_fn, index, t["phase_commits"],
+            t["betas_stack"], ws["fold_sibling_values"], ro_stack,
+            ws["fold_sibs"], ws["final_poly"])
         mark("fold")
-        quotient_ok = self._final_fn(
-            t["alpha"], t["zeta"], ws["trace_local"], ws["trace_next"],
-            ws["quotient_chunks"], publics,
+        # publics broadcast across the proof axis (JAX's in_axes None)
+        quotient_ok = run(
+            "_fin", self._final_fn, t["alpha"], t["zeta"], ws["trace_local"],
+            ws["trace_next"], ws["quotient_chunks"], publics,
             ws.get("stage2_local"), ws.get("stage2_next"),
             t.get("challenges"))
         mark("final")
@@ -609,10 +618,13 @@ class TorchVerifier:
 
 
 def fused_default(device="cuda") -> bool:
-    """Whether a single verification on `device` takes the fused program:
-    on a CUDA device (where the staged path's host dispatch dominates its
-    latency), not on the CPU, as the JAX package chooses for a TPU and a
-    CPU.  The values are the same either way (tests/test_torch_fused.py)."""
+    """Whether a verification on `device` takes the fused programs (a
+    single proof's `_s_all`; a batch's five stage programs from the second
+    batch of a shape on, parallel/batch.py): on a CUDA device (where the
+    staged path's host dispatch dominates its latency), not on the CPU,
+    as the JAX package chooses for a TPU and a CPU.  The values are the
+    same either way (tests/test_torch_fused.py,
+    tests/test_torch_batch_programs.py)."""
     return torch.device(device).type == "cuda"
 
 

@@ -80,7 +80,9 @@ Writes, into tests/fixtures/ (every group by default):
       with (see parallel below), group `api_gaps` the JAX values of
       tests/test_torch_api_gaps.py (see api_gaps below), and group `fused`
       those of the JAX one-dispatch fused verification that
-      tests/test_torch_fused.py compares with (see fused below).
+      tests/test_torch_fused.py compares with (see fused below), group
+      `gamma_programs` the JAX gammas of tests/test_torch_gamma_programs.py's
+      seeded pair streams (see gamma_programs below).
 
 `chip_smoke.py` and the port's tests read these files, so the port can be
 checked on a machine without JAX.  This script may import plonky25_tpu; the
@@ -537,7 +539,7 @@ def jax_values():
     if os.path.exists(path):    # keep the other groups' values
         with open(path) as f:
             kept = json.load(f)
-        for group in ("parallel", "api_gaps", "fused"):
+        for group in ("parallel", "api_gaps", "fused", "gamma_programs"):
             if group in kept:
                 out[group] = kept[group]
     with open(path, "w") as f:
@@ -934,10 +936,46 @@ def fused():
     return [path]
 
 
+def gamma_pairs(chunks):
+    """tests/test_torch_gamma_programs.py's seeded pair stream of `chunks`
+    GAMMA_CHUNKs per lane (37 pairs short of whole chunks, so the padding
+    runs): (n_rows, pairs as a uint64 (n, 2) array)."""
+    n = 5 * 256 * chunks - 37
+    rng = np.random.default_rng(1000 + chunks)
+    return n // 3, rng.integers(0, P, size=(n, 2), dtype=np.uint64)
+
+
+def gamma_programs():
+    """The JAX package's derive_gammas_from_pairs (its jitted lax.scan
+    chunks) on gamma_pairs(1, 2, 3), added to torch_tests_jax_values.json
+    under `gamma_programs`: per stream the row count, the pair count, the
+    sha256 of the pairs' uint64 bytes and the two gammas; ~1 min on the
+    CPU, most of it XLA compiling the chunk."""
+    from plonky25_tpu.attest_program import derive_gammas_from_pairs
+
+    out = {}
+    for chunks in (1, 2, 3):
+        n_rows, pairs = gamma_pairs(chunks)
+        gammas = derive_gammas_from_pairs(
+            n_rows, [(int(a), int(b)) for a, b in pairs])
+        out[str(chunks)] = {
+            "n_rows": n_rows, "n_pairs": len(pairs),
+            "sha256": hashlib.sha256(pairs.tobytes()).hexdigest(),
+            "gammas": [int(g) for g in gammas]}
+    path = os.path.join(OUT, "torch_tests_jax_values.json")
+    with open(path) as f:
+        values = json.load(f)
+    values["gamma_programs"] = out
+    with open(path, "w") as f:
+        json.dump(values, f, indent=1)
+    return [path]
+
+
 GROUPS = {"fibonacci": fibonacci, "multistage": multistage, "mmcs": mmcs,
           "keccak": keccak, "keccak_digest": keccak_digest,
           "jax_values": jax_values, "attest": attest, "composed": composed,
-          "parallel": parallel, "api_gaps": api_gaps, "fused": fused}
+          "parallel": parallel, "api_gaps": api_gaps, "fused": fused,
+          "gamma_programs": gamma_programs}
 
 
 def main():
