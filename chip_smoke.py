@@ -49,15 +49,22 @@ Phases, one line each; any failure exits non-zero:
                 threshold: digest and transcript values equal to
                 tests/fixtures/proof_fibonacci8192_expected.json;
   [prove]       fib(2^20) at FriConfig(1, 100, 16): accepted by the port's
-                `verify_proof`, a flipped Merkle sibling rejected; first and
-                steady latency, ms per stage, launches, device time and busy
-                share, peak memory; then a fresh prover of that shape:
-                `warmup()` ms and its first proof's, byte-equal;
+                `verify_proof`, a flipped Merkle sibling rejected; the
+                signature's first three proofs (staged, capturing the
+                prover's stage programs, replaying them: `TorchProver.plan`)
+                byte-equal, launches of each held to the path's shape, each
+                program's warm-up, capture, instantiation and first-replay
+                ms and pool; replays against staged proofs in turns (ms,
+                stage ms, peak allocated and reserved memory, device time
+                and busy share of each); then a fresh prover of that shape:
+                `warmup()` (its capture) and its first proof, a replay,
+                byte-equal; the card's reserved memory back within 0.5 GiB
+                once that prover is dropped;
   [batch-prove] `BatchProver` on B=256 copies of fib(64), one lane's trace
                 tampered: valid lanes byte-equal to the fixture, the tampered
-                lane rejected by its quotient check; `warmup(256)` ms and
-                the first batch's after it; proofs/s, peak memory, launches
-                per batch;
+                lane rejected by its quotient check; the first three
+                batches and the turns as in [prove]; `warmup(256)` (its
+                capture) and the first batch after it, a replay;
   [mmcs-multi]  the multi-height MMCS `verify_batch` on
                 tests/fixtures/mmcs_multi_height.json (heights 2^12, 2^12,
                 2^6, 2^3, 1; 100 openings): all accepted, a flipped sibling
@@ -77,16 +84,17 @@ Phases, one line each; any failure exits non-zero:
                 memory, device time;
   [prove-rlc]   RlcAir at 2^20 rows: accepted; a flipped stage-2 sibling, a
                 changed stage2_local value and a changed stage-2 commitment
-                rejected; first and steady latency, stage ms (stage2 its own
-                stage), launches, device time, peak memory;
+                rejected; the first three proofs and the turns as in [prove]
+                (stage2 its own stage; no device time);
   [prove-multiset]  MultisetAir at 2^20 pairs (two quotient chunks):
-                accepted; side B with one value changed proves and is
-                rejected by its quotient check alone; the same measurements;
+                accepted; side B with one value changed proves (through the
+                held programs) and is rejected by its quotient check alone;
+                the same measurements;
   [batch-prove-rlc]  `BatchProver` on 256 distinct 64-row RLC traces, lane
                 0 the fixture's (its digest), one lane's stage-2 column
                 changed at a row by a prover faulty on that lane: all 256
                 through one `BatchVerifier` call, the faulty lane rejected
-                by its quotient check alone; proofs/s, peak memory;
+                by its quotient check alone; proofs/s staged, peak memory;
   [keccak-f]    ops/keccak.py's keccak-f[1600] (PyTorch ops) at 2^16 states
                 against refimpl.keccak_f_flat on a sample and the zero-state
                 known answer; ms per call;
@@ -102,8 +110,8 @@ Phases, one line each; any failure exits non-zero:
                 seeded permutations), FriConfig(1, 100, 16): digest, commitments,
                 alpha, zeta, PoW witness and query indices equal to
                 tests/fixtures/proof_keccak_expected.json (the JAX device
-                prover's); first and steady latency, keccak-f/s, stage ms,
-                launches, device time and busy share, peak memory;
+                prover's); the first three proofs and the turns as in
+                [prove], keccak-f/s;
   [verify-keccak]  `verify_proof` of that proof: fused and staged alike
                 (capture ms, pool bytes), launches (659 sponge chunks per
                 trace leaf), latency median of 5;
@@ -125,10 +133,13 @@ Phases, one line each; any failure exits non-zero:
                 equal to the JAX digest, another byte-equal to the port's
                 single proof of its trace, all 8 accepted by one
                 `BatchVerifier` call beside a tampered copy, which is
-                rejected; first and steady latency (median of 2),
-                keccak-f/s, stage ms, launches by variant, peak memory
-                (these three Keccak phases, [prove-keccak], [prove-rlc] and
-                [prove-multiset] are not profiled: UNPROFILED);
+                rejected; the first three batches and one turn each as in
+                [prove] (the staged turn with the programs dropped),
+                keccak-f/s, launches by variant; the card's
+                reserved memory back within 0.5 GiB of its level before
+                the phase once the programs are dropped (these three Keccak
+                phases, [prove-keccak], [prove-rlc] and [prove-multiset]
+                are not profiled: UNPROFILED);
   [gl3]         GF(p^3) mul, inv and div (fields/extension3.py) on the card
                 against the int Gl3 on a seeded sample;
   [gamma-programs]  the gamma sponge's chunk programs (GAMMA_CHUNK steps
@@ -172,7 +183,9 @@ Phases, one line each; any failure exits non-zero:
                 query-index sample refused), a changed opening of the outer
                 STARK, the fib(16) proof as the target;
   [attest-attestation]  `attest_attestation` of that bundle: 38,171 rows,
-                2^16, equal to the JAX values; `check_attested_attestation`
+                2^16, equal to the JAX values (its STARK repeats
+                compose-small's signature and proves staged, as every
+                attestation's STARK does); `check_attested_attestation`
                 accepts it and refuses an inner acc + 1 and the fib(16)
                 proof as the target;
   [compose-golden]  `attest_composed` of the fib(64) fixture proof with
@@ -323,6 +336,7 @@ from plonky25_torch.fields import gl3  # noqa: E402
 from plonky25_torch.fields.goldilocks import GL  # noqa: E402
 from plonky25_torch.prover import BatchProver, TorchProver, prove  # noqa: E402
 from plonky25_torch.prover.prove import (  # noqa: E402
+    get_prover,
     grind_window,
     quotient_eval_chunks_for,
     trace_columns,
@@ -579,6 +593,18 @@ def prove_path_shapes(log_n, fc, air, b, windows):
         tree(log_folded, 4)
     soa[b * grind_window(fc)] += windows
     return {AOS: {b: transcript_steps(log_n, fc, n_ch, s2w)}, SOA: dict(soa)}
+
+
+def capture_shapes(log_n, fc, air, b, windows):
+    """prove_path_shapes of a proof that captures the prover's stage
+    programs: each program's lane-major launches twice (its eager warm-up,
+    then its first replay), the grind program's first window once more
+    (its warm-up; later windows replay it), the transcript's state-major
+    duplexes (eager, between the programs) once."""
+    shapes = prove_path_shapes(log_n, fc, air, b, windows + 1)
+    for n, c in prove_path_shapes(log_n, fc, air, b, 0)[SOA].items():
+        shapes[SOA][n] += c
+    return shapes
 
 
 def shape_config(air, log_n, fc):
@@ -952,7 +978,7 @@ def graphs_summary():
                         for k, st in out.items())), out
 
 
-def timed_runs(prove_batch, traces):
+def timed_runs(prove_batch, traces, fused=None):
     """Three timed batch proofs, the last with stage events: (wall ms of
     each, peak GB, stage ms)."""
     runs = []
@@ -960,54 +986,178 @@ def timed_runs(prove_batch, traces):
     for i in range(3):
         clock = StageClock() if i == 2 else None
         t0 = time.perf_counter()
-        prove_batch(traces, on_stage=clock)
+        prove_batch(traces, on_stage=clock, fused=fused)
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0) * 1e3)
     return runs, torch.cuda.max_memory_allocated() / 1e9, clock.ms()
 
 
-def measure_prove(air, trace, fc, path, path_launches, path_shapes,
-                  split_max, profiled=True):
-    """Prove `trace` first and three more times (counted, the steady
-    latency), once with stage events and, if `profiled`, once under the
-    profiler; check the launches against the path's shape.  Returns
-    (proof, report)."""
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    proof = prove(air, trace, fc, device=DEVICE)
-    first_ms = (time.perf_counter() - t0) * 1e3
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    text = compact(proof)
-    windows = (proof.opening_proof.fri_proof.pow_witness
-               // grind_window(fc) + 1)
-    path_shapes[path] = prove_path_shapes(
-        log2_ceil(len(trace)), fc, air, 1, windows)
-    steady = []
-    for i in range(3):          # stage events on the last
-        clock = StageClock() if i == 2 else None
+def prover_plan(prover, b):
+    """prover.plan for a batch of b traces of its shape (it reads only the
+    shapes: meta tensors stand for the columns)."""
+    z = torch.empty((b, prover.width, 1 << prover.log_n), dtype=torch.int64,
+                    device="meta")
+    return prover.plan(GL(z, z))
+
+
+def drop_programs(air, log_n, fc):
+    """Drop the stage programs of get_prover(air, log_n, fc)'s prover at
+    the end of its phase, so that their pool is not held through the
+    next phases (a later proof of another signature would drop them)."""
+    get_prover(air, log_n, fc, DEVICE,
+               quotient_eval_chunks_for(air, log_n)).release_programs()
+    torch.cuda.empty_cache()
+
+
+def first_proofs(path, prover, b, prove_once, split_max):
+    """A signature's first three proofs as a caller makes them
+    (prove_once() -> proofs of b traces): staged, capturing the prover's
+    stage programs, replaying them (TorchProver.plan).  The captured and
+    the replayed proofs equal the staged proofs in every value (Proof
+    equality: a JSON digest of 256 proofs costs seconds of host time);
+    the staged and the
+    replayed launches are the path's shape (prove_path_shapes), the
+    capture's capture_shapes.  Returns (the staged proofs, the shape,
+    {plan: wall ms}, {plan: launches}, {program: capture figures})."""
+    ms, counts, first, shapes = {}, {}, None, None
+    for how in ("staged", "capture", "replay"):
+        got = prover_plan(prover, b)
+        check(got == how, f"{path}: the proof's plan was {got}, not {how}")
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        again, path_launches[path] = counted(lambda: prove(
-            air, trace, fc, device=DEVICE, on_stage=clock))
-        steady.append((time.perf_counter() - t0) * 1e3)
-        check(compact(again) == text, f"{path}: proofs differ between runs")
-    check_launches(path, path_launches[path], path_shapes[path], split_max)
-    stage_ms = clock.ms()
-    dev, prof = UNPROFILED, None
-    if profiled:
-        dev, prof = device_summary(profile_device_time(
-            lambda: prove(air, trace, fc, device=DEVICE)),
-            statistics.median(steady))
+        proofs, counts[how] = counted(prove_once)
+        ms[how] = (time.perf_counter() - t0) * 1e3
+        if first is None:
+            first = proofs
+            windows = max(pr.opening_proof.fri_proof.pow_witness
+                          for pr in proofs) // grind_window(prover.fc) + 1
+            args = (prover.log_n, prover.fc, prover.air, b, windows)
+            shapes = prove_path_shapes(*args)
+        check(proofs == first, f"{path}: the {how} proofs differ from the "
+              f"staged proofs")
+        want = capture_shapes(*args) if how == "capture" else shapes
+        check_launches(f"{path} ({how})", counts[how], want, split_max)
+    return first, shapes, ms, counts, {
+        n: dict(prog.stats) for n, prog in prover.programs().items()}
+
+
+def prover_programs_text(stats):
+    """A prover's stage programs (first_proofs) as text: how many, their
+    warm-up, capture, instantiation and first-replay ms and pools in all,
+    the largest pools."""
+    tot = {k: sum(st[k] for st in stats.values())
+           for k in ("warmup_ms", "capture_ms", "instantiate_ms",
+                     "first_replay_ms", "pool_bytes")}
+    big = sorted(stats.items(), key=lambda kv: -kv[1]["pool_bytes"])[:3]
+    return (f"{len(stats)} stage programs: warm-up {tot['warmup_ms']:.0f} "
+            f"ms, capture {tot['capture_ms']:.0f} ms, instantiation "
+            f"{tot['instantiate_ms']:.0f} ms, first replays "
+            f"{tot['first_replay_ms']:.0f} ms, pools "
+            f"{tot['pool_bytes'] / 2**20:.0f} MiB in all (largest: "
+            + ", ".join(f"{n} {st['pool_bytes'] / 2**20:.0f}"
+                        for n, st in big) + ")")
+
+
+def prove_turns(path, run, rounds, want, profiled, release=None):
+    """run(fused, on_stage) -> proofs, replaying the stage programs
+    (fused=True) and staged (False) in turns, P S S P ...: the proofs
+    equal `want`.  Per mode: wall ms of each run, the stage ms and peak
+    allocated and reserved GB of its last run (the allocator's cache
+    emptied before each run: the reserved peak is the held programs'
+    pools and the run's own), and, if `profiled`, one more run under the
+    profiler (device_summary).  With `release` (it drops the programs), a
+    staged run never shares the card with their pools: the programs are
+    dropped before it, and captured again, untimed, before the next
+    replay."""
+    out = {m: {"ms": []} for m in ("replay", "staged")}
+    held = [True]
+
+    def ready(fused):
+        if release is None or fused == held[0]:
+            return
+        if fused:
+            check(run(True, None) == want, f"{path}: a re-captured proof "
+                  f"differs")
+        else:
+            release()
+        held[0] = fused
+
+    for r in range(rounds):
+        for fused in ((True, False) if r % 2 == 0 else (False, True)):
+            rec = out["replay" if fused else "staged"]
+            ready(fused)
+            clock = StageClock()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            proofs = run(fused, clock)
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["stage_ms"] = clock.ms()
+            rec["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            rec["peak_reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+            check(proofs == want, f"{path}: a "
+                  f"{'replayed' if fused else 'staged'} proof in turns "
+                  f"differs")
+    for mode, rec in out.items():
+        rec["median_ms"] = statistics.median(rec["ms"])
+        rec["device"], rec["profile"] = UNPROFILED, None
+        if profiled:
+            ready(mode == "replay")
+            rec["device"], rec["profile"] = device_summary(
+                profile_device_time(lambda: run(mode == "replay", None)),
+                rec["median_ms"])
+    return out
+
+
+def turns_text(turns):
+    """prove_turns' figures as text."""
+    return "; ".join(
+        f"{mode} {rec['median_ms']:.1f} ms (median of {len(rec['ms'])} in "
+        f"turns), peak {rec['peak_allocated_gb']:.2f} GB allocated, "
+        f"{rec['peak_reserved_gb']:.2f} GB reserved, stage ms "
+        + ", ".join(f"{k} {t:.1f}" for k, t in rec["stage_ms"].items())
+        + f", {rec['device']}" for mode, rec in turns.items())
+
+
+def measure_prove(air, trace, fc, path, path_launches, path_shapes,
+                  split_max, profiled=True, rounds=2):
+    """Prove `trace` through `prove` three times as a caller does: staged,
+    capturing the prover's stage programs, replaying them (first_proofs;
+    the launches held to the path's shape), then replayed and staged in
+    turns through the prover's prove_columns(fused=) (prove_turns).
+    Returns (proof, text, report)."""
+    log_n = log2_ceil(len(trace))
+    p = get_prover(air, log_n, fc, DEVICE, quotient_eval_chunks_for(air, log_n))
+    torch.cuda.reset_peak_memory_stats()
+    proofs, path_shapes[path], first_ms, counts, progs = first_proofs(
+        path, p, 1, lambda: [prove(air, trace, fc, device=DEVICE)], split_max)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    proof = proofs[0]
+    path_launches[path] = counts["replay"]
+    windows = proof.opening_proof.fri_proof.pow_witness // grind_window(fc) + 1
+    turns = prove_turns(path, lambda fused, clock: p.prove_columns(
+        trace_columns([trace], DEVICE), clock, fused=fused), rounds,
+        proofs, profiled)
     text_line = (
-        f"first proof {first_ms:.1f} ms, steady "
-        f"{statistics.median(steady):.1f} ms (median of 3); launches {AOS} "
-        f"{path_launches[path][AOS]}, {SOA} {path_launches[path][SOA]} "
-        f"({windows} grind windows); peak {peak_gb:.2f} GB; stage ms: "
-        + ", ".join(f"{k} {t:.1f}" for k, t in stage_ms.items()) + f"; {dev}")
+        f"first proofs: " + ", ".join(f"{how} {t:.1f} ms"
+                                      for how, t in first_ms.items())
+        + f" (peak {peak_gb:.2f} GB), each byte-equal; launches per proof "
+        f"{AOS} {counts['replay'][AOS]}, {SOA} {counts['replay'][SOA]} "
+        f"({windows} grind windows) staged and replayed, at the capture "
+        f"{AOS} {counts['capture'][AOS]}, {SOA} {counts['capture'][SOA]} "
+        f"(each program's warm-up beside its first replay); "
+        + prover_programs_text(progs) + "; " + turns_text(turns))
     return proof, text_line, {
-        "log_n": log2_ceil(len(trace)), "bytes": len(text),
-        "first_ms": first_ms, "steady_ms": steady, "stage_ms": stage_ms,
-        "launches": path_launches[path], "windows": windows,
-        "peak_allocated_gb": peak_gb, "profile": prof}
+        "log_n": log_n, "bytes": len(compact(proof)),
+        "first_ms": first_ms["staged"], "first_calls_ms": first_ms,
+        "steady_ms": turns["replay"]["ms"],
+        "staged_ms": turns["staged"]["ms"], "turns": turns,
+        "stage_ms": turns["replay"]["stage_ms"], "launches": counts["replay"],
+        "launches_by_plan": counts, "programs": progs, "windows": windows,
+        "peak_allocated_gb": peak_gb,
+        "profile": turns["replay"]["profile"]}
 
 
 def unchunked_prover(air, log_n, fc):
@@ -1122,7 +1272,7 @@ def attest_step_shapes(targets, rows, att_fc, windows, b_record,
     of one, which takes the fused program; one run for a batch, which the
     record's own BatchVerifier verifies staged), gammas,
     trace and prove (the attestation STARK's transcript and trees at its
-    height, `windows` grind windows)."""
+    height, `windows` grind windows: staged)."""
     rec = []
     for cfg, n in targets:
         v = get_verifier(FibonacciAir(), cfg, DEVICE)
@@ -1156,7 +1306,7 @@ def outer_step_shapes(inner, rows, att_fc, windows, composed=True,
     (composed) or attest_attestation: record (the port's verifier of the
     inner VerifierAir STARK, `record_runs` times, verify_runs), the host
     steps (schedule, outer-schedule: no launch), gammas, trace and prove
-    (the outer STARK at its height)."""
+    (the outer STARK at its height, staged)."""
     log_n = max(len(rows) - 1, 3).bit_length()
     host = ("schedule", "outer-schedule") if composed else ("schedule",)
     out = {"record": {AOS: att_verifier_shapes(inner.stark.degree_bits,
@@ -1772,7 +1922,8 @@ def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
     print(f"[attest-attestation] attest_attestation of the small bundle "
           f"(FriConfig(1, 2, 1)): {ob.n_rows} rows, a 2^"
           f"{ob.stark.degree_bits} STARK; samples, gammas, accumulator and "
-          f"statement equal to the JAX package's; {aa_ms:.1f} ms, steps: "
+          f"statement equal to the JAX package's; {aa_ms:.1f} ms (the prove"
+          f" step staged), steps: "
           f"{clock.text()}; check_attested_attestation accepted in "
           f"{aa_check['accepted']:.1f} ms, refused the inner acc + 1 "
           f"({aa_check['inner_acc']:.1f} ms) and the fib(16) proof as the "
@@ -2171,8 +2322,10 @@ def _prove_lde_mesh_phase(fc, fixture_text, prove_sha, mesh, fib, split_max,
             steady.append((time.perf_counter() - t0) * 1e3)
             check(compact(again) == text, "prove-lde-mesh: proofs differ "
                   "between runs")
-        else:
-            prove(fib, trace, fc, device=DEVICE)
+        else:               # staged, as the meshed prover runs
+            get_prover(fib, LOG_N, fc, DEVICE, quotient_eval_chunks_for(
+                fib, LOG_N)).prove_columns(trace_columns([trace], DEVICE),
+                                           fused=False)
             torch.cuda.synchronize()
             plain.append((time.perf_counter() - t0) * 1e3)
     check_launches("prove_lde_mesh", path_launches["prove_lde_mesh"],
@@ -2212,8 +2365,10 @@ def _batch_prove_mesh_phase(fc, fixture_text, mesh, fib, split_max,
     runs = [(time.perf_counter() - t0) * 1e3]
     gather_ms = dict(coll.ms)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    check(len(proofs) == B_PROVE and all(compact(p) == fixture_text
-                                         for p in proofs),
+    # lane 0's JSON is the fixture's, every other lane equals lane 0 (Proof
+    # equality: 255 JSON texts cost seconds of host time)
+    check(len(proofs) == B_PROVE and compact(proofs[0]) == fixture_text
+          and all(p == proofs[0] for p in proofs),
           "batch-prove-mesh: a proof differs from the fixture")
     check(dict(coll.calls) == {"all_gather_object": 1},
           f"batch-prove-mesh: collectives {dict(coll.calls)}")
@@ -2227,7 +2382,7 @@ def _batch_prove_mesh_phase(fc, fixture_text, mesh, fib, split_max,
     plain = []                          # in turns with the unmeshed batch
     for meshed in (False, True):
         t0 = time.perf_counter()
-        bp.prove(traces, mesh=mesh if meshed else None)
+        bp.prove(traces, mesh=mesh if meshed else None, fused=False)
         (runs if meshed else plain).append((time.perf_counter() - t0) * 1e3)
     ms = statistics.median(runs)
     print(f"[batch-prove-mesh] BatchProver.prove(B={B_PROVE} x fib(64), "
@@ -2702,29 +2857,53 @@ def main(argv=None):
                               device=DEVICE))
     check(not rt["ok"] and not rt["merkle_ok"],
           "fib(2^20) proof with a flipped Merkle sibling accepted")
-    # a fresh prover of that shape (its own tables): warmup, then its
-    # first proof, byte-equal to the unwarmed prover's
+    # a fresh prover of that shape (its own tables): warmup captures its
+    # stage programs (dropping the cached prover's: one set per device),
+    # its first proof replays them, byte-equal to the cached prover's;
+    # dropping the prover gives the programs' memory back
+    get_prover(air, LOG_N, fc, DEVICE,
+               quotient_eval_chunks_for(air, LOG_N)).release_programs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved_before = torch.cuda.memory_reserved() / 2**30
     warmed = TorchProver(air, LOG_N, fc, DEVICE,
                          quotient_eval_chunks_for(air, LOG_N))
     t0 = time.perf_counter()
     warmed.warmup()
     warm_ms = (time.perf_counter() - t0) * 1e3
+    warm_plan = prover_plan(warmed, 1)
+    check(warm_plan == "replay", f"prove: the first proof after warmup() "
+          f"would run {warm_plan}")
     t0 = time.perf_counter()
-    wp = warmed.prove(trace)
-    torch.cuda.synchronize()
+    wp, warm_launches = counted(lambda: warmed.prove(trace))
     warm_first_ms = (time.perf_counter() - t0) * 1e3
     check(hashlib.sha256(compact(wp).encode()).hexdigest() == prove_sha,
           "fib(2^20): the warmed prover's proof differs")
+    check(warm_launches == path_launches["prove"], "prove: the first proof "
+          "after warmup() launched other counts than a replay")
+    warm_pools = sum(prog.stats["pool_bytes"]
+                     for prog in warmed.programs().values()) / 2**30
     del warmed, wp
+    torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    reserved_after = torch.cuda.memory_reserved() / 2**30
+    check(reserved_after - reserved_before < 0.5, f"prove: {reserved_after:.2f}"
+          f" GiB reserved after the warmed prover was dropped, "
+          f"{reserved_before:.2f} GiB before its capture")
     report["prove"].update(warmup_ms=warm_ms,
-                           first_after_warmup_ms=warm_first_ms)
+                           first_after_warmup_ms=warm_first_ms,
+                           reserved_before_gib=reserved_before,
+                           reserved_after_gib=reserved_after,
+                           warm_pools_gib=warm_pools)
     print(f"[prove] fib(2^{LOG_N}) at FriConfig(1, 100, 16): "
           f"{report['prove']['bytes']} bytes, accepted by verify_proof, "
           f"flipped Merkle sibling rejected; trace made in {setup_s:.1f} s "
           f"beforehand; " + line + f"; a fresh prover of this shape: "
-          f"warmup() {warm_ms:.1f} ms, then its first proof "
-          f"{warm_first_ms:.1f} ms, byte-equal")
+          f"warmup() {warm_ms:.1f} ms (its capture), then its first proof "
+          f"{warm_first_ms:.1f} ms, a replay, byte-equal; reserved "
+          f"{reserved_before:.2f} GiB before the capture, "
+          f"{reserved_after:.2f} GiB once the prover was dropped (pools "
+          f"{warm_pools:.2f} GiB)")
 
     lap("prove")
     # ---- BatchProver on B_PROVE copies of fib(64), one lane tampered
@@ -2732,16 +2911,20 @@ def main(argv=None):
     traces = np.asarray([fibonacci_trace(64)] * B_PROVE, dtype=np.uint64)
     traces[bad_lane, 10, 2] = (int(traces[bad_lane, 10, 2]) + 1) % P
     bp = BatchProver(air, 6, fc, device=DEVICE)
-    t0 = time.perf_counter()
-    bp.warmup(B_PROVE)
-    bp_warm_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    proofs, path_launches["batch_prove"] = counted(lambda: bp.prove(traces))
-    bp_first_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    proofs, path_shapes["batch_prove"], bp_first, bp_counts, bp_progs = \
+        first_proofs("batch_prove", bp.base, B_PROVE,
+                     lambda: bp.prove(traces), split_max)
+    bp_first_peak = torch.cuda.max_memory_allocated() / 1e9
+    path_launches["batch_prove"] = bp_counts["replay"]
+    # lane 0's JSON is the fixture's, every other valid lane equals lane 0
+    # (Proof equality: 255 JSON texts cost seconds of host time)
+    check(compact(proofs[0]) == fixture_text, "batch lane 0: proof differs "
+          "from the fixture")
     for i, pr in enumerate(proofs):
         if i != bad_lane:
-            check(compact(pr) == fixture_text,
-                  f"batch lane {i}: proof differs from the fixture")
+            check(pr == proofs[0], f"batch lane {i}: proof differs from the "
+                  f"fixture")
     check(compact(proofs[bad_lane]) != fixture_text, "tampered lane unchanged")
     rbad = verify_proof(proofs[bad_lane], air, fc, device=DEVICE)
     check([bool(rbad.ok), bool(rbad.pow_ok), bool(rbad.merkle_ok),
@@ -2750,39 +2933,58 @@ def main(argv=None):
           "tampered lane not rejected by its quotient check alone")
     bp_windows = max(pr.opening_proof.fri_proof.pow_witness
                      for pr in proofs) // grind_window(fc) + 1
-    path_shapes["batch_prove"] = prove_path_shapes(6, fc, air, B_PROVE,
-                                                   bp_windows)
-    check_launches("batch_prove", path_launches["batch_prove"],
-                   path_shapes["batch_prove"], split_max)
     one = path_launches["prove_64"]
     check(path_launches["batch_prove"][AOS] == one[AOS]
           and path_launches["batch_prove"][SOA] - bp_windows
           == one[SOA] - path_shapes["prove_64"][SOA][grind_window(fc)],
           "a batch launched the kernels more often than one proof")
-    runs, peak_bp_gb, bp_stage_ms = timed_runs(bp.prove, traces)
-    ms_bp = statistics.median(runs)
-    devbp, profbp = device_summary(profile_device_time(
-        lambda: bp.prove(traces)), ms_bp)
+    bp_turns = prove_turns("batch_prove", lambda fused, clock: bp.prove(
+        traces, clock, fused=fused), 1, proofs, True)
+    ms_bp = bp_turns["replay"]["median_ms"]
+    # warmup(B) captures (after the programs are dropped): the first
+    # batch after it replays them
+    bp.release_programs()
+    t0 = time.perf_counter()
+    bp.warmup(B_PROVE)
+    bp_warm_ms = (time.perf_counter() - t0) * 1e3
+    check(prover_plan(bp.base, B_PROVE) == "replay", "batch-prove: the "
+          "first batch after warmup() would not replay")
+    t0 = time.perf_counter()
+    again, warm_counts = counted(lambda: bp.prove(traces))
+    bp_first_ms = (time.perf_counter() - t0) * 1e3
+    check(again == proofs and warm_counts == bp_counts["replay"],
+          "batch-prove: the first batch after warmup() differs")
+    del again
     print(f"[batch-prove] B={B_PROVE} x fib(64): {B_PROVE - 1} proofs "
           f"byte-equal to the fixture, lane {bad_lane} (tampered trace) "
-          f"rejected by its quotient check alone; {ms_bp:.1f} ms per batch "
-          f"(median of 3), {B_PROVE / ms_bp * 1e3:.1f} proofs/s; peak "
-          f"{peak_bp_gb:.2f} GB; launches {AOS} "
-          f"{path_launches['batch_prove'][AOS]}, {SOA} "
-          f"{path_launches['batch_prove'][SOA]} ({bp_windows} grind windows; "
-          f"one proof's counts apart from windows); warmup({B_PROVE}) "
-          f"{bp_warm_ms:.1f} ms, then the first batch {bp_first_ms:.1f} ms; "
-          f"stage ms: "
-          + ", ".join(f"{k} {t:.1f}" for k, t in bp_stage_ms.items())
-          + f"; {devbp}")
-    report["batch_prove"] = {"B": B_PROVE, "ms_runs": runs, "ms": ms_bp,
+          f"rejected by its quotient check alone; first batches: "
+          + ", ".join(f"{how} {t:.1f} ms" for how, t in bp_first.items())
+          + f" (peak {bp_first_peak:.2f} GB), each byte-equal; launches "
+          f"{AOS} {bp_counts['replay'][AOS]}, {SOA} {bp_counts['replay'][SOA]}"
+          f" ({bp_windows} grind windows; one proof's counts apart from "
+          f"windows) staged and replayed, at the capture {AOS} "
+          f"{bp_counts['capture'][AOS]}, {SOA} {bp_counts['capture'][SOA]}; "
+          + prover_programs_text(bp_progs) + f"; {turns_text(bp_turns)}; "
+          f"replayed {B_PROVE / ms_bp * 1e3:.1f} proofs/s, staged "
+          f"{B_PROVE / bp_turns['staged']['median_ms'] * 1e3:.1f}; "
+          f"warmup({B_PROVE}) {bp_warm_ms:.1f} ms (its capture), then the "
+          f"first batch {bp_first_ms:.1f} ms, a replay")
+    report["batch_prove"] = {"B": B_PROVE, "ms_runs": bp_turns["replay"]["ms"],
+                             "ms": ms_bp,
                              "proofs_per_s": B_PROVE / ms_bp * 1e3,
-                             "peak_allocated_gb": peak_bp_gb,
-                             "stage_ms": bp_stage_ms, "windows": bp_windows,
+                             "first_calls_ms": bp_first,
+                             "peak_allocated_gb": bp_first_peak,
+                             "turns": bp_turns, "programs": bp_progs,
+                             "stage_ms": bp_turns["replay"]["stage_ms"],
+                             "windows": bp_windows,
                              "warmup_ms": bp_warm_ms,
                              "first_after_warmup_ms": bp_first_ms,
                              "launches": path_launches["batch_prove"],
-                             "profile": profbp}
+                             "launches_by_plan": bp_counts,
+                             "profile": bp_turns["replay"]["profile"]}
+    bp.release_programs()
+    del proofs
+    torch.cuda.empty_cache()
 
     lap("batch-prove")
     # ---- multi-height MMCS verify_batch on the fixture's openings
@@ -2927,7 +3129,7 @@ def main(argv=None):
     trace = rng.integers(0, P, size=(n_big, 2), dtype=np.uint64)
     big, line, report["prove_rlc"] = measure_prove(
         RlcAir(), trace, fc, "prove_rlc", path_launches, path_shapes,
-        split_max, profiled=False)
+        split_max, profiled=False, rounds=1)
     check(verdict(verify_proof(big, RlcAir(), fc, device=DEVICE))["ok"],
           "RLC 2^20 proof rejected by verify_proof")
     flags = {}
@@ -2943,6 +3145,7 @@ def main(argv=None):
           f"flipped stage-2 sibling, a changed stage2_local value and a "
           f"changed stage-2 commitment rejected; " + line)
 
+    drop_programs(RlcAir(), LOG_N, fc)
     lap("prove-rlc")
     # ---- MultisetAir at 2^LOG_N pairs: side B a permutation of side A
     rng = np.random.default_rng(0x5E720)
@@ -2952,7 +3155,7 @@ def main(argv=None):
     trace = np.stack([tags, va, tags[perm], va[perm]], axis=1)
     big, line, report["prove_multiset"] = measure_prove(
         MultisetAir(), trace, fc, "prove_multiset", path_launches,
-        path_shapes, split_max, profiled=False)
+        path_shapes, split_max, profiled=False, rounds=1)
     check(verdict(verify_proof(big, MultisetAir(), fc, device=DEVICE))["ok"],
           "multiset 2^20 proof rejected by verify_proof")
     trace[n_big // 3, 3] = (int(trace[n_big // 3, 3]) + 1) % P
@@ -2969,6 +3172,7 @@ def main(argv=None):
           f"verify_proof; side B with one value changed proves and is "
           f"rejected by its quotient check alone; " + line)
     del trace, va, perm, tags, big
+    drop_programs(MultisetAir(), LOG_N, fc)
     torch.cuda.empty_cache()
 
     lap("prove-multiset")
@@ -3011,13 +3215,15 @@ def main(argv=None):
         6, fc, RlcAir(), B_PROVE, bp_windows)
     check_launches("batch_prove_rlc", path_launches["batch_prove_rlc"],
                    path_shapes["batch_prove_rlc"], split_max)
-    runs, peak_gb, stage_ms = timed_runs(bp_rlc.prove, traces)
+    # staged, as a one-shot batch runs ([batch-prove] measures the
+    # programs)
+    runs, peak_gb, stage_ms = timed_runs(bp_rlc.prove, traces, fused=False)
     ms_bp = statistics.median(runs)
     print(f"[batch-prove-rlc] B={B_PROVE} distinct 64-row RlcAir traces: lane "
           f"0 equal to the fixture's digest; all {B_PROVE} proofs in one "
           f"BatchVerifier call, {B_PROVE - 1} accepted, lane {bad_lane} "
           f"(stage-2 column changed at one row) rejected by its quotient "
-          f"check alone; {ms_bp:.1f} ms per batch (median of 3), "
+          f"check alone; {ms_bp:.1f} ms per batch (staged, median of 3), "
           f"{B_PROVE / ms_bp * 1e3:.1f} proofs/s; peak {peak_gb:.2f} GB; "
           f"launches {AOS} {path_launches['batch_prove_rlc'][AOS]}, {SOA} "
           f"{path_launches['batch_prove_rlc'][SOA]} ({bp_windows} grind "
@@ -3111,7 +3317,7 @@ def main(argv=None):
     ksetup_s = time.perf_counter() - t0
     kbig, line, report["prove_keccak"] = measure_prove(
         kair, ktrace, fc, "prove_keccak", path_launches, path_shapes,
-        split_max, profiled=False)
+        split_max, profiled=False, rounds=1)
     del ktrace
     cfg_k = derive_config(kbig, fc)
     check(cfg_k == v_keccak.config, "the Keccak proof's shape differs")
@@ -3128,9 +3334,10 @@ def main(argv=None):
           f"16): {report['prove_keccak']['bytes']} bytes, equal to the JAX "
           f"package's digest (sha256, commitments, alpha, zeta, PoW witness, "
           f"query indices); "
-          f"{n_perm / (steady / 1e3):.1f} keccak-f/s steady; trace made in "
+          f"{n_perm / (steady / 1e3):.1f} keccak-f/s replayed; trace made in "
           f"{ksetup_s:.1f} s beforehand; " + line)
 
+    drop_programs(kair, KECCAK_LOG_N, fc)
     lap("prove-keccak")
     # ---- verify_proof on that proof
 
@@ -3283,21 +3490,20 @@ def main(argv=None):
     # ---- BatchProver at B=8 x 2^12 x 2,633, S=4
     bpk = BatchProver(kair, KECCAK_LOG_N, fc, device=DEVICE,
                       quotient_eval_chunks=S_KECCAK)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    bk_reserved_before = torch.cuda.memory_reserved() / 2**30
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    kproofs, path_launches["prove_batch_keccak"] = counted(
-        lambda: bpk.prove(ktraces))
-    bk_first = (time.perf_counter() - t0) * 1e3
+    (kproofs, path_shapes["prove_batch_keccak"], bk_first_ms, bk_counts,
+     bk_progs) = first_proofs("prove_batch_keccak", bpk.base, B_KECCAK_PROVE,
+                              lambda: bpk.prove(ktraces), split_max)
+    bk_first = bk_first_ms["staged"]
     bk_peak = torch.cuda.max_memory_allocated() / 1e9
+    path_launches["prove_batch_keccak"] = bk_counts["replay"]
     got = proof_digest(kproofs[0], v_keccak, cfg_k)
     for k, val in got.items():
         check(val == expected_keccak[k], f"batch-prove-keccak lane 0 {k} "
               f"differs from the JAX package's")
-    other = B_KECCAK_PROVE // 2
-    check(compact(kproofs[other]) == compact(
-        prove(kair, ktraces[other], fc, device=DEVICE)),
-        f"batch-prove-keccak lane {other} differs from the port's single "
-        f"proof of its trace")
     bvk8 = BatchVerifier(kair, cfg_k, device=DEVICE)
     lanes8 = kproofs + [tamper(kproofs[1], "final_poly")]
     runs = 1                # a BatchVerifier's first batch is staged
@@ -3312,22 +3518,29 @@ def main(argv=None):
                    path_shapes["verify_batch_prove_keccak"], split_max)
     bk_windows = max(pr.opening_proof.fri_proof.pow_witness
                      for pr in kproofs) // grind_window(fc) + 1
-    path_shapes["prove_batch_keccak"] = prove_path_shapes(
-        KECCAK_LOG_N, fc, kair, B_KECCAK_PROVE, bk_windows)
-    check_launches("prove_batch_keccak", path_launches["prove_batch_keccak"],
-                   path_shapes["prove_batch_keccak"], split_max)
-    del kproofs, lanes8
-    steady = []
-    for i in range(2):                  # stage events on the last
-        clock = StageClock() if i == 1 else None
-        t0 = time.perf_counter()
-        bpk.prove(ktraces, on_stage=clock)
-        torch.cuda.synchronize()
-        steady.append((time.perf_counter() - t0) * 1e3)
-    bk_stage_ms = clock.ms()
-    bk_ms = statistics.median(steady)
-    devbk, profbk = UNPROFILED, None
+    del lanes8, bvk8
+    # the staged batch runs with the programs dropped: beside their
+    # pools it would reserve nearly the whole card
+    bk_turns = prove_turns("prove_batch_keccak", lambda fused, clock:
+                           bpk.prove(ktraces, clock, fused=fused), 1,
+                           kproofs, False, release=bpk.release_programs)
+    bk_ms = bk_turns["replay"]["median_ms"]
+    bk_pools = sum(st["pool_bytes"] for st in bk_progs.values()) / 2**30
+    bpk.release_programs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    bk_reserved_after = torch.cuda.memory_reserved() / 2**30
+    check(bk_reserved_after - bk_reserved_before < 0.5,
+          f"batch-prove-keccak: {bk_reserved_after:.2f} GiB reserved once the"
+          f" programs were dropped, {bk_reserved_before:.2f} GiB before")
+    other = B_KECCAK_PROVE // 2
+    check(prove(kair, ktraces[other], fc, device=DEVICE) == kproofs[other],
+          f"batch-prove-keccak lane {other} differs from the port's single "
+          f"proof of its trace")
+    del kproofs
     kfs = B_KECCAK_PROVE * n_perm / (bk_ms / 1e3)
+    kfs_staged = (B_KECCAK_PROVE * n_perm
+                  / (bk_turns["staged"]["median_ms"] / 1e3))
     lk = path_launches["prove_batch_keccak"]
     print(f"[batch-prove-keccak] BatchProver, B={B_KECCAK_PROVE} x 2^"
           f"{KECCAK_LOG_N} x {kair.width()} KeccakAir traces (the fixture's "
@@ -3335,21 +3548,31 @@ def main(argv=None):
           f"groups and slabs: lane 0 equal to the JAX digest, lane {other} "
           f"byte-equal to the single proof of its trace, all "
           f"{B_KECCAK_PROVE} accepted by one BatchVerifier call and a "
-          f"tampered copy (final_poly) rejected; first batch "
-          f"{bk_first:.1f} ms, steady {bk_ms:.1f} ms (median of 2), "
-          f"{kfs:.1f} keccak-f/s; peak {bk_peak:.2f} GB; launches {AOS} "
+          f"tampered copy (final_poly) rejected; first batches: "
+          + ", ".join(f"{how} {t:.1f} ms" for how, t in bk_first_ms.items())
+          + f" (peak {bk_peak:.2f} GB), each byte-equal; {kfs:.1f} keccak-f/s"
+          f" replayed, {kfs_staged:.1f} staged; launches {AOS} "
           f"{lk[AOS]} ({lk[AOS + '.split']} split), {SOA} {lk[SOA]} "
           f"({lk[SOA + '.whole']} one thread per state, {lk[SOA + '.split']}"
-          f" split; {bk_windows} grind windows), as the shape gives; stage "
-          f"ms: " + ", ".join(f"{k} {t:.1f}" for k, t in bk_stage_ms.items())
-          + f"; {devbk}")
+          f" split; {bk_windows} grind windows) staged and replayed, as the "
+          f"shape gives, at the capture {AOS} {bk_counts['capture'][AOS]}, "
+          f"{SOA} {bk_counts['capture'][SOA]}; "
+          + prover_programs_text(bk_progs) + f"; {turns_text(bk_turns)}; "
+          f"reserved {bk_reserved_before:.2f} GiB before the phase, "
+          f"{bk_reserved_after:.2f} GiB once the programs were dropped")
     report["batch_prove_keccak"] = {
         "B": B_KECCAK_PROVE, "S": S_KECCAK, "first_ms": bk_first,
-        "steady_ms": steady, "ms": bk_ms, "keccak_f_per_s": kfs,
-        "peak_allocated_gb": bk_peak, "stage_ms": bk_stage_ms,
+        "first_calls_ms": bk_first_ms, "steady_ms": bk_turns["replay"]["ms"],
+        "ms": bk_ms, "keccak_f_per_s": kfs, "keccak_f_per_s_staged":
+        kfs_staged, "peak_allocated_gb": bk_peak,
+        "stage_ms": bk_turns["replay"]["stage_ms"], "turns": bk_turns,
+        "programs": bk_progs, "pools_gib": bk_pools,
+        "reserved_before_gib": bk_reserved_before,
+        "reserved_after_gib": bk_reserved_after,
         "windows": bk_windows, "launches": lk,
+        "launches_by_plan": bk_counts,
         "verify_launches": path_launches["verify_batch_prove_keccak"],
-        "profile": profbk}
+        "profile": None}
     del bpk, ktraces
     torch.cuda.empty_cache()
 
@@ -3452,7 +3675,7 @@ def main(argv=None):
               p2._poseidon2_permute_variant)
         for n in sorted(set(SMALL_N + CROSSOVER_N + (1 << 21,))):
             s = random_states(n, n, kernel == SOA)
-            reps = 100 if n < 10**5 else 5
+            reps = 25 if n < 10**5 else 5
             variant_ms[kernel][n] = {
                 f"{var}{key}": timer(lambda: fn(s, var == "split"), reps)
                 for var in ("whole", "split")

@@ -72,10 +72,11 @@ from .models.verifier_air import VerifierAir
 from .parallel.batch import BatchVerifier, stack_witnesses
 from .proof import (FriConfig, P3Config, Proof, derive_config,
                     proof_from_json, proof_to_json)
-from .prover.prove import prove_on_device
+from .prover.prove import get_prover, quotient_eval_chunks_for
 from .refimpl.challenger import DuplexChallenger
 from .refimpl.prover import prove as refimpl_prove
 from .refimpl.verifier import verify as refimpl_verify
+from .utils.bits import log2_strict
 from .utils.tree import tree_map
 from .verifier import _publics, fused_default, get_verifier, verify_proof
 from .witness import pack_witness
@@ -230,15 +231,24 @@ def _prove_schedule(rows, gamma, acc, att_fc: FriConfig,
                     use_device_prover: bool, device="cuda",
                     on_step=None) -> Proof:
     """Build the VerifierAir trace on `device` and prove it: with the
-    port's prove_on_device from its columns (the quotient segmented by the
-    trace's size, as the JAX package's), or with the int prover from its
-    rows."""
+    port's prover from its columns (the quotient segmented by the trace's
+    size, as prove_on_device and the JAX package segment it), or with the
+    int prover from its rows.  The device proof runs staged
+    (`fused=False`): an attestation proves its STARK once, and capturing
+    the prover's stage programs for it, which the plan rule would do
+    where the device's last proof had the same signature, would cost
+    several staged proofs' time and hold their memory pool for a replay
+    that may never come."""
     mark = on_step or (lambda name: None)
     v_air = VerifierAir({"gamma": gamma, "acc": acc})
     if use_device_prover:
         cols = ap.build_trace_cols(rows, gamma, device=device)   # (W, H)
         mark("trace")
-        stark = prove_on_device(v_air, cols, att_fc, device)
+        log_n = log2_strict(cols.shape[1])
+        prover = get_prover(v_air, log_n, att_fc, device,
+                            quotient_eval_chunks_for(v_air, log_n))
+        stark = prover.prove_columns(gl.GL(cols.lo[None], cols.hi[None]),
+                                     fused=False)[0]
         mark("prove")
         return stark
     trace = ap.build_trace_rowmajor(rows, gamma, device=device)

@@ -39,6 +39,8 @@ from ..fields import gl, gl2
 from ..fields.goldilocks import GL
 from ..refimpl.field import Gl2
 
+ZERO_DENOMINATOR = "a sampled gamma equals a compressed side-B pair"
+
 
 def pad_pairs(side_a: Sequence[Tuple[int, int]],
               side_b: Sequence[Tuple[int, int]],
@@ -91,14 +93,25 @@ class MultisetAir(Air):
 
     def build_stage2_device(self, cols: GL, challenges) -> GL:
         """The grand product on the device: cols GL (..., 4, H), challenges
-        [GL2 (...)] * 2 -> GL (..., 2, H), equal to build_stage2.
+        [GL2 (...)] * 2 -> GL (..., 2, H), equal to build_stage2.  One bool
+        comes back to the host: whether any denominator is zero, which
+        raises ZeroDivisionError as the int oracle does."""
+        z, zero = self.build_stage2_device_flagged(cols, challenges)
+        if bool(zero):
+            raise ZeroDivisionError(ZERO_DENOMINATOR)
+        return z
+
+    def build_stage2_device_flagged(self, cols: GL, challenges):
+        """build_stage2_device without the host sync: (columns, zero), zero
+        a device bool that is true where a denominator is zero.  The
+        prover takes this form, so that its stage-2 program never waits
+        for the host; it raises ZeroDivisionError at the proof's first
+        sync.
 
         The JAX package runs a lax.scan with one inversion per row; here
         all H denominators invert in one vectorised GF(p^2) inversion, the
         ratios multiply elementwise, and a prefix product of log2(H) steps
-        (fields.extension.prefix_product) runs along the rows.  Before the
-        inversion one bool comes back to the host: whether any denominator
-        is zero, which raises ZeroDivisionError as the int oracle does."""
+        (fields.extension.prefix_product) runs along the rows."""
         gamma, delta = (c[..., None] for c in challenges)
 
         def compress(tag: GL, val: GL):
@@ -107,11 +120,8 @@ class MultisetAir(Air):
         num = compress(cols[..., 0, :], cols[..., 1, :])
         den = compress(cols[..., 2, :], cols[..., 3, :])
         zero = (gl2.eq(den, gl2.zeros((), den.c0.device))).any()
-        if bool(zero):
-            raise ZeroDivisionError(
-                "a sampled gamma equals a compressed side-B pair")
         z = gl2.prefix_product(gl2.mul(num, gl2.inv(den)))
-        return gl.stack([z.c0, z.c1], dim=-2)
+        return gl.stack([z.c0, z.c1], dim=-2), zero
 
     # -- constraints ------------------------------------------------------
     def eval(self, folder: VerifierConstraintFolder) -> None:

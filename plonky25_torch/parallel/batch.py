@@ -10,9 +10,10 @@ stack like the other fields.
 
 As the JAX BatchVerifier runs five jitted programs (`_t`, `_b`, `_r`, `_f`,
 `_fin`), the port runs the five stages each as a utils/graphs.py
-StaticProgram: on the card a CUDA graph, on the CPU the stage function
-itself.  The programs share one memory pool and always replay in capture
-order, one program's outputs loaded into the next without a clone.
+StaticProgram of one utils/graphs.py ProgramSet: on the card a CUDA
+graph, on the CPU the stage function itself.  The programs share one
+memory pool and always replay in capture order, one program's outputs
+taken as the next one's input buffers without a copy.
 
 A capture costs an eager warm-up of every stage besides the capture and
 instantiation, so it pays only for a batch shape that comes again.  A
@@ -35,7 +36,7 @@ import torch
 
 from ..air import Air
 from ..proof import FriConfig, P3Config, Proof, derive_config
-from ..utils.graphs import StaticProgram
+from ..utils.graphs import ProgramSet, StaticProgram
 from ..utils.tree import tree_map, tree_signature
 from ..verifier import fused_default, get_verifier
 from ..witness import pack_witness
@@ -51,44 +52,12 @@ def tile_witness(w: Dict, b: int) -> Dict:
     return tree_map(lambda x: x[None].expand(b, *x.shape), w)
 
 
-class StagePrograms:
-    """The five stage programs of one witness signature (the JAX
-    BatchVerifier's `_t`, `_b`, `_r`, `_f`, `_fin`), each made from its
-    first call's arguments.  They run one after the other under `lock`,
-    in the order they were captured, so they share one memory pool."""
-
-    NAMES = ("_t", "_b", "_r", "_f", "_fin")
-
-    def __init__(self, signature: tuple, device: torch.device):
-        self.signature = signature
-        self.device = device
-        self.pool = (torch.cuda.graph_pool_handle()
-                     if device.type == "cuda" else None)
-        self.lock = threading.Lock()
-        self._t = self._b = self._r = self._f = self._fin = None
-
-    def run(self, name: str, fn, *args):
-        """Program `name` on `args`: its outputs, which its next run
-        overwrites."""
-        prog = getattr(self, name)
-        if prog is None:
-            prog = StaticProgram(fn, args, self.device, self.pool)
-            setattr(self, name, prog)
-        prog.load(*args)
-        return prog.run()
-
-    def programs(self) -> Dict[str, StaticProgram]:
-        """The programs made so far, by name."""
-        return {n: getattr(self, n) for n in self.NAMES
-                if getattr(self, n) is not None}
-
-
 class BatchVerifier:
     """Verify batches of proofs that share one shape config."""
 
     def __init__(self, air: Air, config: P3Config, device="cuda"):
         self.base = get_verifier(air, config, device)
-        self._held = None        # StagePrograms of one signature
+        self._held = None        # the ProgramSet of one signature
         self._seen = None        # the signature of the last staged batch
         self._lock = threading.Lock()
 
@@ -96,7 +65,7 @@ class BatchVerifier:
         """The stage programs held (of the last signature captured), by
         name; empty before the first capture."""
         held = self._held
-        return held.programs() if held is not None else {}
+        return dict(held.programs) if held is not None else {}
 
     def plan(self, ws: Dict, fused: bool = None) -> str:
         """What verify_witnesses(ws, fused=fused) will do: "staged",
@@ -121,14 +90,14 @@ class BatchVerifier:
                 self._seen = tree_signature(ws)
             elif how == "capture":
                 self._held = None       # the old programs' pool goes first
-                self._held = StagePrograms(tree_signature(ws),
-                                           self.base.device)
+                self._held = ProgramSet(tree_signature(ws),
+                                        self.base.device)
             progs = self._held
         if how == "staged":
             return self.base.verify_witnesses(ws, on_stage)
         with progs.lock:
             return tree_map(torch.clone, self.base.verify_witnesses(
-                ws, on_stage, run=progs.run))
+                ws, on_stage, run=progs))
 
     def verify_witnesses(self, ws: Dict, on_stage=None,
                          with_samples: bool = False, fused: bool = None):

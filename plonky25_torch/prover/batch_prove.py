@@ -12,13 +12,19 @@ kept (the witness order of the sequential grind).  A batch therefore
 launches each kernel as often as one proof does, apart from grind windows:
 the batch grinds until its last proof has found a witness.  With a mesh
 (`prove(..., mesh=)`) each rank proves its share of the batch this way.
-`warmup(n_proofs)` runs every stage once at a batch of n_proofs, as JAX's
-compiled its vmapped modules for one.
+
+The stages run as the base prover's stage programs or staged, as its
+`plan` says for the batch's signature (prove.py's module docstring): on
+the card a batch size's first batch is staged, its second captures the
+programs, later ones replay them.  `warmup(n_proofs)` captures them on
+the card for a batch of n_proofs, as JAX compiled its vmapped modules for
+one, so the first batch of that size replays.  A meshed batch runs
+staged; `warmup` is for unmeshed batches.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 import torch.distributed as dist
@@ -27,6 +33,7 @@ from ..air import Air
 from ..parallel.mesh import axis_group
 from ..proof import FriConfig, Proof
 from ..utils.bits import log2_strict
+from ..utils.graphs import StaticProgram
 from .prove import get_prover, trace_columns
 
 
@@ -39,14 +46,26 @@ class BatchProver:
                                quotient_eval_chunks)
 
     def warmup(self, n_proofs: int, max_workers: int = 8) -> None:
-        """TorchProver.warmup at a batch of n_proofs (the JAX
-        BatchProver.warmup, plonky25_tpu/prover/batch_prove.py:95): every
-        stage once on zero-filled (n_proofs, W, H) inputs, the results
-        discarded.  `max_workers` is kept for JAX's signature and unused.
-        With a mesh, warm up at the share each rank proves."""
+        """TorchProver.warmup at an unmeshed batch of n_proofs (the JAX
+        BatchProver.warmup, plonky25_tpu/prover/batch_prove.py:95): a
+        batch of zero-filled (n_proofs, W, H) columns proved and
+        discarded, the stage programs captured on the card.  A meshed
+        batch (`prove(..., mesh=)`) runs staged and never replays them:
+        warming it up here would capture a set that its first batch drops
+        unused, so a meshed caller warms up by proving its first batch.
+        `max_workers` is kept for JAX's signature and unused."""
         self.base._warmup(n_proofs)
 
-    def prove(self, traces, on_stage=None, mesh=None) -> List[Proof]:
+    def programs(self) -> Dict[str, StaticProgram]:
+        """The base prover's stage programs, by name (TorchProver.programs)."""
+        return self.base.programs()
+
+    def release_programs(self) -> None:
+        """Drop the base prover's stage programs."""
+        self.base.release_programs()
+
+    def prove(self, traces, on_stage=None, mesh=None,
+              fused: bool = None) -> List[Proof]:
         """traces: B row-major traces of identical shape -> B proofs, each
         identical to what TorchProver.prove gives for that trace.
 
@@ -55,10 +74,17 @@ class BatchProver:
         of the mesh's size, rank r proves traces [r B/n, (r + 1) B/n), and
         the host arrays of the proofs are all-gathered in rank order before
         assembly, so every rank returns all B.  Proofs are independent:
-        nothing else crosses ranks."""
+        nothing else crosses ranks.
+
+        Without a mesh the stages run as `self.base.plan(columns, fused)`
+        says (the stage programs or staged; the same bytes); a meshed
+        batch runs staged, and fused=True with a mesh raises."""
         if mesh is None:
             return self.base.prove_columns(
-                trace_columns(traces, self.base.device), on_stage)
+                trace_columns(traces, self.base.device), on_stage,
+                fused=fused)
+        if fused:
+            raise ValueError("BatchProver.prove(mesh=) runs staged")
         if mesh.device_type != self.base.device.type:
             raise ValueError(f"a {mesh.device_type} mesh for a "
                              f"{self.base.device.type} prover")
@@ -75,7 +101,7 @@ class BatchProver:
 
         return self.base.prove_columns(trace_columns(
             traces[rank * per:(rank + 1) * per], self.base.device), on_stage,
-            gather)
+            gather, fused=False)
 
 
 def _concat(parts):

@@ -60,10 +60,50 @@ through the four-step transform with its rows split over the mesh's ranks
 (`ops.ntt.coset_ntt_four_step`, two all-to-alls and an all-gather), then
 the bit-reversal gather; every rank holds the whole LDE and runs the rest
 of the proof replicated.  The proof bytes are those of the unmeshed route.
+
+Stage programs.  The JAX prover compiles every stage (`_s_commit_trace`,
+`_s_quotient`, `_s_commit_chunks`, `_s_opened`, `_s_ro`, `_grind`, a
+rows and a step program per FRI phase, the tree builds and path
+openings of ops/mmcs.py).  Here each runs either staged, op by op from
+the host, or as a utils/graphs.py StaticProgram: on the card a CUDA graph
+captured once and replayed, on the CPU the stage function on the
+program's buffers.  `_prove_device` names the programs: commit_trace
+(`_commit_matrix`, every column chunk inside), tree_trace, stage2 (an
+AIR's device builder), commit_stage2, tree_stage2, quotient,
+commit_chunks, tree_quotient, opened, reduced_openings, fold_rows_k,
+fold_tree_k and fold_step_k per phase, grind (one window, its first
+witness a device input) and queries (every tree's `_open_paths` and the
+query gathers).  A utils/graphs.py `ProgramSet` holds the programs of one
+signature (the prover and its batch size); they share one memory pool,
+always replay in capture order under one lock, held until the proof's
+values are pulled, and pass their LDEs and trees on without a copy.
+
+These stay eager, between the programs: the DeviceChallenger's duplexes
+(one kernel launch and a copy each, which a graph launch would not make
+cheaper; JAX runs them as small jits), the grind's data-dependent window
+loop (a host loop in JAX too), the host stage-2 builder of an AIR without
+a device one, and the proofs' assembly.  An `lde_mesh` prover runs staged:
+collectives run between its stages.
+
+`plan(cols, fused)` decides, as parallel/batch.py's BatchVerifier does
+for its batches: with fused=None on the card a signature's first proof
+runs staged (a one-shot proof pays no capture), its second in a row on
+the device captures, later ones replay; fused=True or False decides
+outright (attest.py proves an attestation's STARK, which it proves once,
+with fused=False); on the CPU None means staged.  `warmup` captures on the card,
+so the first proof after it replays.  At most one set of programs is
+held per device, that of the last signature proved there: a proof of any
+other signature, on any prover, staged or not, first drops it with its
+pool and buffers (so two signatures proved in turns both run staged),
+and so does `release_programs()` or dropping the prover.  A replayed
+proof launches the kernels of a staged one and gives the same bytes; a
+failed capture raises.
 """
 
 from __future__ import annotations
 
+import threading
+import weakref
 from typing import Dict, List
 
 import numpy as np
@@ -76,7 +116,8 @@ from ..device import resolve_device
 from ..fields import gl, gl2
 from ..fields.extension import GL2, Ops
 from ..fields.goldilocks import GL
-from ..ops.mmcs import DeviceMerkleTree
+from ..models.multiset_air import ZERO_DENOMINATOR
+from ..ops.mmcs import _build_tree, _open_paths
 from ..ops.ntt import (_bitrev, barycentric_eval_ext, coset_intt,
                        coset_lde_pair, coset_lde_to_rev, coset_ntt_four_step,
                        coset_points, intt, ntt, powers)
@@ -95,8 +136,9 @@ from ..proof import (
 )
 from ..refimpl.field import Gl
 from ..utils.bits import log2_ceil, log2_strict, reverse_bits_len_u32
-from ..utils.tree import tree_map
-from ..verifier import _publics
+from ..utils.graphs import ProgramSet, StaticProgram
+from ..utils.tree import tree_map, tree_signature
+from ..verifier import _publics, fused_default
 from .device_challenger import DeviceChallenger
 
 GRIND_WINDOW = 1 << 16
@@ -187,6 +229,15 @@ class TorchProver:
         self._segment_weights = None
         self._ro_xs = None
         self._fold_cache: Dict = {}
+        self._programs = None   # ProgramSet of one signature (plan)
+
+    def table_sizes(self) -> Dict[str, int]:
+        """The entries of this prover's tables: a capture checks that none
+        is made during it (utils/graphs.py)."""
+        return {"selectors": self._selectors is not None,
+                "segment_weights": self._segment_weights is not None,
+                "ro_points": self._ro_xs is not None,
+                "fold": len(self._fold_cache)}
 
     # ------------------------------------------------------------ tables
     def selectors(self):
@@ -265,15 +316,22 @@ class TorchProver:
                 return w // d
         return -(-w // g)
 
-    def _stage2_cols(self, cols: GL, challenges) -> GL:
+    def _stage2_cols(self, cols: GL, challenges):
         """Stage-2 columns (B, s2w, H) from the trace columns (B, W, H) and
-        the sampled challenges, GL2 (B,) each.  An AIR with
-        `build_stage2_device` stays on the device; otherwise the challenges
-        and the trace come to the host once and `Air.build_stage2` runs for
-        each proof of the batch (the same values either way)."""
-        build_dev = getattr(self.air, "build_stage2_device", None)
-        if build_dev is not None:
-            return build_dev(cols, challenges)
+        the sampled challenges, GL2 (B,) each -> (columns, zero).  An AIR
+        with `build_stage2_device` stays on the device (the stage2
+        program), through its `build_stage2_device_flagged` form where it
+        has one: zero is then a device bool, true where the builder
+        divided by zero, which the proof raises at its first sync, so
+        that the program never waits for the host.  Otherwise zero is None
+        and the challenges and the trace come to the host once, where
+        `Air.build_stage2` runs for each proof of the batch (the same
+        values either way)."""
+        if self._device_stage2:
+            flagged = getattr(self.air, "build_stage2_device_flagged", None)
+            if flagged is not None:
+                return flagged(cols, challenges)
+            return self.air.build_stage2_device(cols, challenges), None
         host = _pull({"cols": cols, "ch": challenges})
         out = []
         for b in range(cols.shape[0]):
@@ -281,17 +339,27 @@ class TorchProver:
             chs = [(int(c0[b]), int(c1[b])) for c0, c1 in host["ch"]]
             out.append([[v % P for v in col]
                         for col in self.air.build_stage2(rows, chs)])
-        return gl.from_u64(np.asarray(out, dtype=object), self.device)
+        return gl.from_u64(np.asarray(out, dtype=object), self.device), None
+
+    @property
+    def _device_stage2(self) -> bool:
+        """Whether the AIR builds its stage-2 columns on the device."""
+        return getattr(self.air, "build_stage2_device", None) is not None
 
     def _quotient_fn(self, cols: GL, alpha: GL2, s2_cols: GL = None,
-                     challenges=None) -> GL2:
+                     challenges=None, publics=None) -> GL2:
         """Constraint fold over the quotient coset divided by Z_H: cols
         (B, W, H), alpha (B,) -> quotient evaluations GL2 (B, q).  A
         multi-stage AIR also passes its stage-2 columns (B, s2w, H) and the
-        challenges, GL2 (B,) each.  With quotient_eval_chunks S > 1 the
-        coset is evaluated in S strided segments (`_quotient_segments`)."""
+        challenges, GL2 (B,) each.  `publics` (GL2 scalars by name, an
+        input of the quotient program) defaults to the AIR's own.  With
+        quotient_eval_chunks S > 1 the coset is evaluated in S strided
+        segments (`_quotient_segments`)."""
+        if publics is None:
+            publics = _publics(self.air, self.device)
         if self.quotient_eval_chunks > 1:
-            return self._quotient_segments(cols, alpha, s2_cols, challenges)
+            return self._quotient_segments(cols, alpha, s2_cols, challenges,
+                                           publics)
         q_size = 1 << self.q_log_n
         is_first, is_last, is_trans, inv_zh = self.selectors()
 
@@ -309,11 +377,12 @@ class TorchProver:
         main = Main(*local_next(cols), (),
                     *(local_next(s2_cols) if self.s2w else ()))
         acc = self._fold(main, (cols.shape[0], q_size),
-                         (is_first, is_last, is_trans), alpha, challenges)
+                         (is_first, is_last, is_trans), alpha, challenges,
+                         publics)
         return gl2.mul_base(acc, inv_zh)
 
     def _fold(self, main: Main, shape, selectors, alpha: GL2,
-              challenges) -> GL2:
+              challenges, publics) -> GL2:
         """The AIR's constraints folded at the points `shape` (B, q'), the
         selectors GL (q',) at those points."""
         is_first, is_last, is_trans = selectors
@@ -324,14 +393,14 @@ class TorchProver:
             is_last_row=gl2.from_base(is_last),
             is_transition=gl2.from_base(is_trans),
             alpha=alpha[:, None],
-            publics=_publics(self.air, self.device),
+            publics=publics,
             challenges=[c[:, None] for c in challenges or []],
         )
         self.air.eval(folder)
         return folder.accumulator
 
     def _quotient_segments(self, cols: GL, alpha: GL2, s2_cols: GL,
-                           challenges) -> GL2:
+                           challenges, publics) -> GL2:
         """_quotient_fn in S strided sub-coset segments (the JAX prover's
         chunked branch, :305-404).  Segment c holds the quotient points
         j = c + S t, the coset 7 * g_q^c * <g_M>, M = q / S.  With the
@@ -365,7 +434,8 @@ class TorchProver:
                 vecs += [_ext_columns_first(_segment(s2_coeffs, w, m))
                          for w in (w_loc[c], w_nxt[c])]
             acc = self._fold(Main(vecs[0], vecs[1], (), *vecs[2:]), (b, m),
-                             [x[c::s] for x in sel], alpha, challenges)
+                             [x[c::s] for x in sel], alpha, challenges,
+                             publics)
             # out[c + S t] = acc[t]
             tree_map(lambda d, v: d[:, c::s].copy_(v), out,
                      gl2.mul_base(acc, inv_zh[c::s]))
@@ -486,17 +556,18 @@ class TorchProver:
             ro = gl2.add(ro, gl2.mul(sums[g], inv_dens[g]))
         return ro
 
-    def _grind_fn(self, state_rest: GL, base: int,
-                  window: int = GRIND_WINDOW):
+    def _grind_fn(self, state_rest: GL, base, window: int = GRIND_WINDOW):
         """Try the witnesses [base, base + window) for every proof of the
         batch in one lane-major launch: state_rest (B, 11) -> (found (B,),
         first offset (B,)) for the first w whose permute([w, rest]) has
-        lane 11's low proof_of_work_bits zero."""
+        lane 11's low proof_of_work_bits zero.  `base` is an int or a 0-d
+        int64 tensor on the device (the grind program's input, loaded for
+        each window)."""
         b = state_rest.shape[0]
         dev = self.device
         win = (1, b, window)
-        w_lo = torch.arange(base, base + window, dtype=torch.int64,
-                            device=dev).expand(win)
+        w_lo = (torch.arange(window, dtype=torch.int64, device=dev)
+                + base).expand(win)
         # witnesses < 2^32: lane 0's hi limb is zero
         lo = torch.cat([w_lo, state_rest.lo.T[:, :, None].expand(11, *win[1:])])
         hi = torch.cat([torch.zeros(win, dtype=torch.int64, device=dev),
@@ -508,64 +579,65 @@ class TorchProver:
             ok &= (out.hi[11] & ((1 << (bits - 32)) - 1)) == 0
         return ok.any(-1), ok.to(torch.uint8).argmax(-1)
 
+    def _grind_window_fn(self, state_rest: GL, base: torch.Tensor):
+        """_grind_fn over this prover's grind_window: the grind program."""
+        return self._grind_fn(state_rest, base, grind_window(self.fc))
+
+    # ------------------------------------------------------------ programs
+    def plan(self, cols: GL, fused: bool = None) -> str:
+        """What prove_columns(cols, fused=fused) will do: "staged",
+        "capture" (make the stage programs of cols's signature and run
+        them) or "replay" (module docstring).  Only the shapes of cols
+        are read."""
+        sig = tree_signature(cols)
+        held = self._programs is not None and self._programs.signature == sig
+        if self.lde_mesh is not None:
+            if fused:
+                raise ValueError("an lde_mesh prover runs staged: "
+                                 "collectives run between its stages")
+            return "staged"
+        if fused is None:
+            owner, last = _last_proof(self.device)
+            fused = fused_default(self.device) and (
+                held or (owner is self and last == sig))
+        if not fused:
+            return "staged"
+        return "replay" if held else "capture"
+
+    def programs(self) -> Dict[str, StaticProgram]:
+        """The stage programs this prover holds, by name; empty when it
+        holds none."""
+        held = self._programs
+        return dict(held.programs) if held is not None else {}
+
+    def release_programs(self) -> None:
+        """Drop this prover's stage programs, their memory pool and input
+        buffers with them."""
+        with _LAST_LOCK:
+            self._programs = None
+
     # ------------------------------------------------------------ warmup
     def warmup(self, max_workers: int = 8) -> None:
-        """Run every stage of a proof once on zero-filled inputs of this
-        prover's shape and discard the results (the JAX TpuProver.warmup,
+        """Prove zero-filled columns of this prover's shape once and
+        discard the values (the JAX TpuProver.warmup,
         plonky25_tpu/prover/prove.py:655): the kernel libraries are built,
-        the tables cached and every kernel module loaded, so the first
-        proof costs what later ones do.  The proofs are the same bytes
-        with or without it.  `max_workers` is kept for JAX's signature
-        and unused: JAX compiled its modules in that many threads, and
-        nothing here compiles in parallel.  With `lde_mesh` every rank
-        calls it (the LDE's collectives run)."""
+        the tables cached and every kernel module loaded, and on the card
+        the stage programs are captured, as JAX compiles its programs
+        here, so the first proof replays them.  On the CPU, and with
+        `lde_mesh` (every rank calls it: the LDE's collectives run), the
+        stages run staged.  The proofs are the same bytes with or without
+        it.  `max_workers` is kept for JAX's signature and unused: JAX
+        compiled its modules in that many threads, and nothing here
+        compiles in parallel."""
         self._warmup(1)
 
     def _warmup(self, b: int) -> None:
         """warmup at a batch of b proofs (BatchProver.warmup)."""
-        dev = self.device
-        fc = self.fc
-        if dev.type == "cuda":
+        if self.device.type == "cuda":
             load_kernels()
-        h = 1 << self.log_n
-
-        def ze():
-            return gl2.zeros((b,), dev)
-
-        cols = gl.zeros((b, self.width, h), dev)
-        ch = DeviceChallenger((b,), dev)
-        trace_lde = self._commit_matrix(cols)
-        trees = [DeviceMerkleTree(trace_lde)]
-        ch.observe_many(trees[0].root)
-        challenges = [ch.sample_ext() for _ in range(self.n_challenges)]
-        s2_cols = s2_lde = None
-        if self.s2w:      # the stage-2 builder itself needs real challenges
-            s2_cols = gl.zeros((b, self.s2w, h), dev)
-            s2_lde = self._commit_matrix(s2_cols)
-            trees.append(DeviceMerkleTree(s2_lde))
-        q_evals = self._quotient_fn(cols, ze(), s2_cols, challenges)
-        q_lde = self._commit_chunks_fn(q_evals)
-        trees.append(DeviceMerkleTree(q_lde))
-        opened = self._opened_fn(cols, q_evals, ze(), s2_cols)
-        u = self._ro_fn(trace_lde, q_lde, *opened[:3], ze(), ze(), s2_lde,
-                        *opened[3:])
-        vectors = []
-        for log_folded in range(self.log_max - 1, fc.log_blowup - 1, -1):
-            rows_fn, step_fn = self._fold_phase_raw(log_folded)
-            rows, e0, e1 = rows_fn(u)
-            trees.append(DeviceMerkleTree(rows))
-            vectors.append(u)
-            u = step_fn(e0, e1, ze())
-        self._grind_fn(gl.zeros((b, 11), dev), 0, grind_window(fc))
-        qidx = torch.zeros((b, fc.num_queries), dtype=torch.int64, device=dev)
-        for m in (trace_lde, q_lde) + ((s2_lde,) if self.s2w else ()):
-            _gather_cols(m, qidx)
-        for tree in trees:
-            tree.open_paths(qidx)
-        for vec in vectors:
-            _gather_last(vec.c0, qidx ^ 1)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        cols = gl.zeros((b, self.width, 1 << self.log_n), self.device)
+        self._host_values(cols, None, self.device.type == "cuda"
+                          and self.lde_mesh is None)
 
     # ------------------------------------------------------------ prove
     def prove(self, trace, on_stage=None) -> Proof:
@@ -574,112 +646,20 @@ class TorchProver:
         return self.prove_columns(trace_columns([trace], self.device),
                                   on_stage)[0]
 
-    def prove_columns(self, cols: GL, on_stage=None,
-                      gather=None) -> List[Proof]:
+    def prove_columns(self, cols: GL, on_stage=None, gather=None,
+                      fused: bool = None) -> List[Proof]:
         """Prove the traces cols (B, W, H) in lockstep -> B proofs.
         `on_stage(name)` is called after each stage is enqueued (the
         hook the chip run times stages with).  `gather`, if given, maps
         the host arrays pulled for these B proofs to those of every proof
-        to assemble (the meshed BatchProver's all-gather)."""
+        to assemble (the meshed BatchProver's all-gather).  The stages run
+        staged or as programs, as `plan(cols, fused)` says; the same
+        bytes either way."""
         mark = on_stage or (lambda name: None)
-        fc = self.fc
-        b = cols.shape[0]
         if cols.shape[1:] != (self.width, 1 << self.log_n):
             raise ValueError(f"trace columns {cols.shape}: want (B, "
                              f"{self.width}, {1 << self.log_n})")
-        ch = DeviceChallenger((b,), self.device)
-
-        trace_lde = self._commit_matrix(cols)                  # (B, W, N)
-        trace_tree = DeviceMerkleTree(trace_lde)
-        ch.observe_many(trace_tree.root)
-        mark("commit_trace")
-
-        # stage 2 (multi-stage AIRs): sample the challenges, build and
-        # commit the challenge-dependent matrix (refimpl/prover.py:127-140)
-        challenges = [ch.sample_ext() for _ in range(self.n_challenges)]
-        s2_cols = s2_lde = s2_tree = None
-        if self.s2w:
-            s2_cols = self._stage2_cols(cols, challenges)      # (B, s2w, H)
-            s2_lde = self._commit_matrix(s2_cols)              # (B, s2w, N)
-            s2_tree = DeviceMerkleTree(s2_lde)
-            ch.observe_many(s2_tree.root)
-            mark("stage2")
-        alpha = ch.sample_ext()
-
-        q_evals = self._quotient_fn(cols, alpha, s2_cols, challenges)
-        mark("quotient")
-        q_lde = self._commit_chunks_fn(q_evals)
-        q_tree = DeviceMerkleTree(q_lde)
-        ch.observe_many(q_tree.root)
-        zeta = ch.sample_ext()
-        mark("commit_quotient")
-
-        opened = self._opened_fn(cols, q_evals, zeta, s2_cols)
-        tl, tn, qc = opened[:3]
-        mark("opened")
-        alpha_fri = ch.sample_ext()
-        u = self._ro_fn(trace_lde, q_lde, tl, tn, qc, zeta, alpha_fri,
-                        s2_lde, *opened[3:])
-        mark("reduced_openings")
-
-        phase_trees, phase_vectors = [], []
-        for log_folded in range(self.log_max - 1, fc.log_blowup - 1, -1):
-            rows_fn, step_fn = self._fold_phase_raw(log_folded)
-            rows, e0, e1 = rows_fn(u)
-            tree = DeviceMerkleTree(rows)
-            phase_trees.append(tree)
-            phase_vectors.append(u)
-            ch.observe_many(tree.root)
-            u = step_fn(e0, e1, ch.sample_ext())
-        low_degree_ok = gl2.eq(u, u[..., :1]).all()
-        mark("fri_commit")
-
-        # PoW grind: shared ascending windows, each proof's first hit (the
-        # witness order of the sequential grind).  bool(found.all()) is
-        # the proof's first device-to-host wait.
-        if ch.input_buffer:
-            raise AssertionError("observations pending before the grind")
-        state_rest = ch.state[..., 1:12]
-        found = torch.zeros(b, dtype=torch.bool, device=self.device)
-        wit = torch.zeros(b, dtype=torch.int64, device=self.device)
-        base, window = 0, grind_window(fc)
-        while True:
-            f, off = self._grind_fn(state_rest, base, window)
-            wit = torch.where(f & ~found, base + off, wit)
-            found |= f
-            if bool(found.all()):
-                break
-            base += window
-            if base >= 1 << 32:
-                raise RuntimeError("no proof-of-work witness below 2^32")
-        ch.observe(GL(wit, torch.zeros_like(wit)))
-        pow_ok = (ch.sample_bits(fc.proof_of_work_bits) == 0).all()
-        mark("grind")
-
-        qidx = ch.sample_many_bits(fc.num_queries, self.log_max)   # (B, Q)
-        pulls = {
-            "pow_ok": pow_ok, "low_degree_ok": low_degree_ok, "wit": wit,
-            "trace_root": trace_tree.root, "q_root": q_tree.root,
-            "phase_roots": [t.root for t in phase_trees],
-            "tl": tl, "tn": tn, "qc": qc, "final": u[..., 0],
-            "trace_open": _gather_cols(trace_lde, qidx),
-            "q_open": _gather_cols(q_lde, qidx),
-            "trace_paths": trace_tree.open_paths(qidx),
-            "q_paths": q_tree.open_paths(qidx),
-            "fold_sibs": [], "fold_paths": [],
-        }
-        if self.s2w:
-            pulls["s2_root"] = s2_tree.root
-            pulls["s2l"], pulls["s2n"] = opened[3:]
-            pulls["s2_open"] = _gather_cols(s2_lde, qidx)
-            pulls["s2_paths"] = s2_tree.open_paths(qidx)
-        idx = qidx
-        for vec, tree in zip(phase_vectors, phase_trees):
-            pulls["fold_sibs"].append(GL2(_gather_last(vec.c0, idx ^ 1),
-                                          _gather_last(vec.c1, idx ^ 1)))
-            pulls["fold_paths"].append(tree.open_paths(idx >> 1))
-            idx = idx >> 1
-        host = _pull(pulls)
+        host = self._host_values(cols, mark, fused)
         if not host["pow_ok"]:
             raise AssertionError("PoW self-check failed")
         if not host["low_degree_ok"]:
@@ -689,6 +669,140 @@ class TorchProver:
         proofs = [self._assemble(host, i) for i in range(len(host["wit"]))]
         mark("queries")
         return proofs
+
+    def _host_values(self, cols: GL, mark, fused) -> Dict:
+        """The host arrays of the proofs of cols, through the stage
+        programs or staged as `plan` says.  Any other signature's programs
+        on this device are dropped first; a capture makes this
+        signature's; the proof becomes the device's last (module
+        docstring)."""
+        mark = mark or (lambda name: None)
+        sig = tree_signature(cols)
+        with _LAST_LOCK:
+            how = self.plan(cols, fused)
+            owner, _ = _last_proof(self.device)
+            if owner is not None and owner._programs is not None and (
+                    owner is not self or owner._programs.signature != sig):
+                owner._programs = None      # the old pool goes first
+            if how == "capture":
+                self._programs = ProgramSet(sig, self.device,
+                                            self.table_sizes)
+            _LAST[_device_key(self.device)] = (weakref.ref(self), sig)
+            progs = None if how == "staged" else self._programs
+        if progs is None:
+            return _pull(self._prove_device(cols, _STAGED, mark))
+        # the programs overwrite their outputs at the next replay: hold
+        # the set until the proof's values are on the host
+        with progs.lock:
+            return _pull(self._prove_device(cols, progs, mark))
+
+    def _prove_device(self, cols: GL, run, mark) -> Dict:
+        """Every stage of the proofs of cols (B, W, H), each through
+        `run(name, fn, *args)` (`_STAGED` calls fn; a ProgramSet runs its
+        program of that name) -> the device values the proofs are
+        assembled from, and the self-checks."""
+        fc = self.fc
+        b = cols.shape[0]
+        cols = run.input("cols", cols)
+        ch = DeviceChallenger((b,), self.device)
+
+        trace_lde = run("commit_trace", self._commit_matrix, cols)  # (B, W, N)
+        committed = {"trace": (trace_lde,
+                               run("tree_trace", _build_tree, trace_lde))}
+        ch.observe_many(_root(committed["trace"][1]))
+        mark("commit_trace")
+
+        # stage 2 (multi-stage AIRs): sample the challenges, build and
+        # commit the challenge-dependent matrix (refimpl/prover.py:127-140)
+        challenges = [ch.sample_ext() for _ in range(self.n_challenges)]
+        s2_cols = s2_lde = zero = None
+        if self.s2w:
+            if self._device_stage2:
+                s2_cols, zero = run("stage2", self._stage2_cols, cols,
+                                    challenges)                # (B, s2w, H)
+            else:
+                s2_cols, zero = self._stage2_cols(cols, challenges)
+                s2_cols = run.input("s2_cols", s2_cols)
+            s2_lde = run("commit_stage2", self._commit_matrix, s2_cols)
+            committed["s2"] = (s2_lde,
+                               run("tree_stage2", _build_tree, s2_lde))
+            ch.observe_many(_root(committed["s2"][1]))
+            mark("stage2")
+        alpha = ch.sample_ext()
+
+        q_evals = run("quotient", self._quotient_fn, cols, alpha, s2_cols,
+                      challenges, _publics(self.air, self.device))
+        mark("quotient")
+        q_lde = run("commit_chunks", self._commit_chunks_fn, q_evals)
+        committed["q"] = (q_lde, run("tree_quotient", _build_tree, q_lde))
+        ch.observe_many(_root(committed["q"][1]))
+        zeta = ch.sample_ext()
+        mark("commit_quotient")
+
+        opened = run("opened", self._opened_fn, cols, q_evals, zeta, s2_cols)
+        tl, tn, qc = opened[:3]
+        mark("opened")
+        alpha_fri = ch.sample_ext()
+        u = run("reduced_openings", self._ro_fn, trace_lde, q_lde, tl, tn,
+                qc, zeta, alpha_fri, s2_lde, *opened[3:])
+        mark("reduced_openings")
+
+        phase_trees, phase_vectors = [], []
+        for log_folded in range(self.log_max - 1, fc.log_blowup - 1, -1):
+            rows_fn, step_fn = self._fold_phase_raw(log_folded)
+            rows, e0, e1 = run(f"fold_rows_{log_folded}", rows_fn, u)
+            levels = run(f"fold_tree_{log_folded}", _build_tree, rows)
+            phase_trees.append(levels)
+            phase_vectors.append(u)
+            ch.observe_many(_root(levels))
+            u = run(f"fold_step_{log_folded}", step_fn, e0, e1,
+                    ch.sample_ext())
+        low_degree_ok = gl2.eq(u, u[..., :1]).all()
+        mark("fri_commit")
+
+        # PoW grind: shared ascending windows, each proof's first hit (the
+        # witness order of the sequential grind).  The first `found` check
+        # is the proof's first device-to-host wait; it also reads the
+        # stage-2 builder's zero flag.
+        if ch.input_buffer:
+            raise AssertionError("observations pending before the grind")
+        state_rest = ch.state[..., 1:12]
+        found = torch.zeros(b, dtype=torch.bool, device=self.device)
+        wit = torch.zeros(b, dtype=torch.int64, device=self.device)
+        base, window = 0, grind_window(fc)
+        while True:
+            f, off = run("grind", self._grind_window_fn, state_rest,
+                         torch.full((), base, dtype=torch.int64,
+                                    device=self.device))
+            wit = torch.where(f & ~found, base + off, wit)
+            found |= f
+            if zero is None:
+                done = bool(found.all())
+            else:
+                done, bad = torch.stack([found.all(), zero]).tolist()
+                zero = None
+                if bad:
+                    raise ZeroDivisionError(ZERO_DENOMINATOR)
+            if done:
+                break
+            base += window
+            if base >= 1 << 32:
+                raise RuntimeError("no proof-of-work witness below 2^32")
+        ch.observe(GL(wit, torch.zeros_like(wit)))
+        pow_ok = (ch.sample_bits(fc.proof_of_work_bits) == 0).all()
+        mark("grind")
+
+        qidx = ch.sample_many_bits(fc.num_queries, self.log_max)   # (B, Q)
+        pulls = run("queries", _queries_fn, qidx, committed, phase_trees,
+                    phase_vectors)
+        pulls = dict(pulls, pow_ok=pow_ok, low_degree_ok=low_degree_ok,
+                     wit=wit, tl=tl, tn=tn, qc=qc, final=u[..., 0],
+                     phase_roots=[_root(t) for t in phase_trees],
+                     **{f"{k}_root": _root(t) for k, (_, t) in
+                        committed.items()})
+        if self.s2w:
+            pulls["s2l"], pulls["s2n"] = opened[3:]
+        return pulls
 
     def _assemble(self, h: Dict, b: int) -> Proof:
         """Proof b of the batch from the pulled host arrays."""
@@ -748,6 +862,64 @@ class TorchProver:
                 query_openings=query_openings),
             degree_bits=self.log_n,
         )
+
+
+class _Staged:
+    """The staged path's stage runner: each stage function called as it
+    is, on the caller's tensors."""
+
+    def __call__(self, name, fn, *args):
+        return fn(*args)
+
+    def input(self, name, x):
+        return x
+
+
+_STAGED = _Staged()
+
+
+# The last proof on each device: (a weak reference to its prover, its
+# signature).  Only that prover may hold stage programs on the device, and
+# only of that signature (module docstring).
+_LAST: Dict = {}
+_LAST_LOCK = threading.Lock()
+
+
+def _device_key(device: torch.device):
+    if device.type == "cuda" and device.index is None:
+        return ("cuda", torch.cuda.current_device())
+    return (device.type, device.index)
+
+
+def _last_proof(device: torch.device):
+    """(the prover of the device's last proof or None, its signature)."""
+    ref, sig = _LAST.get(_device_key(device), (None, None))
+    return (ref() if ref is not None else None), sig
+
+
+def _root(levels: List[GL]) -> GL:
+    """The roots (B, 4) of trees built by ops.mmcs._build_tree."""
+    return levels[-1][..., 0]
+
+
+def _queries_fn(qidx: torch.Tensor, committed: Dict, phase_trees: List,
+                phase_vectors: List) -> Dict:
+    """The query openings at qidx (B, Q): for each committed matrix
+    (name: (matrix (B, C, N), tree levels)) its opened rows and their
+    paths (`{name}_open`, `{name}_paths`); for each FRI phase the sibling
+    values and the paths of its tree (`fold_sibs`, `fold_paths`)."""
+    out = {}
+    for name, (m, levels) in committed.items():
+        out[f"{name}_open"] = _gather_cols(m, qidx)
+        out[f"{name}_paths"] = _open_paths(levels, qidx)
+    out["fold_sibs"], out["fold_paths"] = [], []
+    idx = qidx
+    for vec, levels in zip(phase_vectors, phase_trees):
+        out["fold_sibs"].append(GL2(_gather_last(vec.c0, idx ^ 1),
+                                    _gather_last(vec.c1, idx ^ 1)))
+        out["fold_paths"].append(_open_paths(levels, idx >> 1))
+        idx = idx >> 1
+    return out
 
 
 def _pieces(nbytes: int, budget: int) -> int:

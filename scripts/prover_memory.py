@@ -9,8 +9,9 @@ Each configuration runs in a child process of its own (a fresh CUDA
 context, so one configuration's cached blocks and a failed allocation do
 not reach the next): the tests/fixtures/proof_keccak_expected.json trace,
 and for B > 1 traces of seeded inputs beside it, proved at
-FriConfig(1, 100, 16) twice through TorchProver.prove_columns.  The second
-proof is measured: torch.cuda.max_memory_allocated() read and reset at
+FriConfig(1, 100, 16) twice through TorchProver.prove_columns, staged
+(fused=False: no stage program is captured).  The second proof is
+measured: torch.cuda.max_memory_allocated() read and reset at
 every stage boundary (the peak of each stage, with what earlier stages
 still hold), the whole proof's peak, its wall time, and its kernel count
 (torch.profiler).  "off" means every strategy off: S = 1, one LDE chunk,
@@ -129,7 +130,7 @@ def run_verifier_config(cfg, device="cuda"):
     cols = GL(one.lo[None], one.hi[None])
     del one, data
     if log_n < 19:
-        p.prove_columns(cols)
+        p.prove_columns(cols, fused=False)
     torch.cuda.synchronize()
     stages = {}
 
@@ -141,7 +142,7 @@ def run_verifier_config(cfg, device="cuda"):
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 1e9
     t0 = time.perf_counter()
-    p.prove_columns(cols, on_stage=mark)
+    p.prove_columns(cols, on_stage=mark, fused=False)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     return {"peak_gb": max(stages.values()), "stage_peak_gb": stages,
@@ -190,7 +191,7 @@ def run_config(cfg, device="cuda"):
     if cfg["bary"] is not None:
         p._bary_col_slab = cfg["bary"]
     tr = traces(cfg["b"])
-    p.prove_columns(trace_columns(tr, device))
+    p.prove_columns(trace_columns(tr, device), fused=False)
     torch.cuda.synchronize()
     cols = trace_columns(tr, device)
     stages = {}
@@ -203,14 +204,14 @@ def run_config(cfg, device="cuda"):
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 1e9
     t0 = time.perf_counter()
-    p.prove_columns(cols, on_stage=mark)
+    p.prove_columns(cols, on_stage=mark, fused=False)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
-        p.prove_columns(cols)
+        p.prove_columns(cols, fused=False)
         torch.cuda.synchronize()
     kernels = sum(ev.count for ev in prof.key_averages()
                   if ev.device_type == torch.autograd.DeviceType.CUDA)
