@@ -1,0 +1,8 @@
+"""The share of the traced window in which no operation ran on the
+device."""
+
+from p3bench.harness.readers import idle_share
+
+
+def read(run):
+    return idle_share(run)
