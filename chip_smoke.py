@@ -135,7 +135,7 @@ Phases, one line each; any failure exits non-zero:
                 `BatchVerifier` call beside a tampered copy, which is
                 rejected; the first three batches and one turn each as in
                 [prove] (the staged turn with the programs dropped),
-                keccak-f/s, launches by variant; the card's
+                keccak-f/s, launches and states; the card's
                 reserved memory back within 0.5 GiB of its level before
                 the phase once the programs are dropped (these three Keccak
                 phases, [prove-keccak], [prove-rlc] and [prove-multiset]
@@ -155,7 +155,7 @@ Phases, one line each; any failure exits non-zero:
                 schedule, the gammas (5 sponge chains of 15,104 steps), the
                 trace and the 2^14 x 620 VerifierAir STARK; the bundle
                 byte-equal to artifacts/attestation_fibonacci.json (made by
-                the JAX package); ms and launches by variant per step, each
+                the JAX package); ms, launches and states per step, each
                 held to its shape; peak memory;
   [check-golden]  `check_attestation` of that committed bundle with the
                 port's verifier: accepted; a flipped sample, the statement
@@ -193,7 +193,7 @@ Phases, one line each; any failure exits non-zero:
                 attestation: 403,335 rows, a 2^19 x 620 outer STARK (the
                 quotient in prove_on_device's segments), equal to the JAX
                 values (its gammas through the chunk programs); ms,
-                launches by variant and peak memory per step;
+                launches, states and peak memory per step;
   [check-composed-golden]  `check_composed` of it without the target's
                 bytes: accepted; the statement stripped and a trace width
                 of 99 refused with no launch; ms, launches and peak per
@@ -250,9 +250,9 @@ Phases, one line each; any failure exits non-zero:
                 most 1.0, the roofline share equal to bound_ms / ms);
 then the kernel table line {"kernels": [...]} (launches and times of
 MAIN_PATH, compose_golden, with every path's beside them) and the last
-line {"ok": true, "device": {...}}.  Every path is driven with the launch
-counts set to 0 just before it and read just after, and the counts are held
-to the numbers the path's shape gives, by variant too: a single
+line {"ok": true, "device": {...}}.  Every path is driven inside
+`counted` (a fresh table of launch and state counts) and the counts are held
+to the numbers the path's shape gives, states too: a single
 verification's first call through a verifier launches its kernels twice
 (the eager warm-up before the graph's capture, then the replay;
 verify_runs), later calls once per replay; so does a chunk program's first
@@ -646,19 +646,18 @@ def mmcs_path_shapes(rows, logs, q):
     return {AOS: {q: chunks + logs[0] + len(logs) - 1}, SOA: {}}
 
 
-def check_launches(path, got, shapes, split_max):
-    """The path's counts equal its shape's, in all and by variant (the
-    launches of at most split_max[k] states run split), and each of its
-    kernels ran."""
+def check_launches(path, got, shapes):
+    """The path's counts equal its shape's, its launches and the states
+    they permuted, and each of its kernels ran.  (Which variant a launch
+    ran is the device trace's to name.)"""
     for k in (AOS, SOA):
         want = sum(shapes[k].values())
-        split = sum(c for n, c in shapes[k].items() if n <= split_max[k])
+        states = sum(n * c for n, c in shapes[k].items())
         check(got[k] == want, f"{path}: {k} launched {got[k]} times, the "
               f"shape gives {want}")
-        check(got[k + ".split"] == split and got[k + ".whole"] == want - split,
-              f"{path}: {k} launched split {got[k + '.split']} and whole "
-              f"{got[k + '.whole']} times, the shape gives {split} and "
-              f"{want - split}")
+        check(got[k + ".states"] == states,
+              f"{path}: {k} permuted {got[k + '.states']} states, the shape "
+              f"gives {states}")
         check(got[k] > 0 or not shapes[k], f"{path}: {k} was not launched")
 
 
@@ -864,7 +863,7 @@ def proof_digest(proof, v, cfg):
     return got
 
 
-def fused_phase(proof, fc, cfg, expected, split_max, path_launches,
+def fused_phase(proof, fc, cfg, expected, path_launches,
                 path_shapes):
     """[fused]: the fixture proof through the cached verifier's fused
     program (a CUDA graph captured at [single]'s first verify_proof) and
@@ -911,8 +910,7 @@ def fused_phase(proof, fc, cfg, expected, split_max, path_launches,
         ok, path_launches[path] = counted(
             lambda: bool(v.verify(proof, fused=fused).ok))
         check(ok, f"{path}: the fixture was rejected")
-        check_launches(path, path_launches[path], path_shapes[path],
-                       split_max)
+        check_launches(path, path_launches[path], path_shapes[path])
     # wall ms, in turns
     wall = {True: [], False: []}
     for _ in range(5):
@@ -934,7 +932,7 @@ def fused_phase(proof, fc, cfg, expected, split_max, path_launches,
             f"staged verdicts, a held result unchanged; public values 1, 2, "
             f"1 through one cached verifier: {verdicts}; "
             f"{path_launches['verify_fused'][AOS]} {AOS} launches per replay "
-            f"({path_launches['verify_fused'][AOS + '.split']} split), as "
+            f"({path_launches['verify_fused'][AOS + '.states']} states), as "
             f"staged; wall median of 5 in turns: fused {med[True]:.1f} ms, "
             f"staged {med[False]:.1f} ms; one replay: {replay}; "
             + program_text(prog.stats))
@@ -1009,7 +1007,7 @@ def drop_programs(air, log_n, fc):
     torch.cuda.empty_cache()
 
 
-def first_proofs(path, prover, b, prove_once, split_max):
+def first_proofs(path, prover, b, prove_once):
     """A signature's first three proofs as a caller makes them
     (prove_once() -> proofs of b traces): staged, capturing the prover's
     stage programs, replaying them (TorchProver.plan).  The captured and
@@ -1036,7 +1034,7 @@ def first_proofs(path, prover, b, prove_once, split_max):
         check(proofs == first, f"{path}: the {how} proofs differ from the "
               f"staged proofs")
         want = capture_shapes(*args) if how == "capture" else shapes
-        check_launches(f"{path} ({how})", counts[how], want, split_max)
+        check_launches(f"{path} ({how})", counts[how], want)
     return first, shapes, ms, counts, {
         n: dict(prog.stats) for n, prog in prover.programs().items()}
 
@@ -1122,7 +1120,7 @@ def turns_text(turns):
 
 
 def measure_prove(air, trace, fc, path, path_launches, path_shapes,
-                  split_max, profiled=True, rounds=2):
+                  profiled=True, rounds=2):
     """Prove `trace` through `prove` three times as a caller does: staged,
     capturing the prover's stage programs, replaying them (first_proofs;
     the launches held to the path's shape), then replayed and staged in
@@ -1132,7 +1130,7 @@ def measure_prove(air, trace, fc, path, path_launches, path_shapes,
     p = get_prover(air, log_n, fc, DEVICE, quotient_eval_chunks_for(air, log_n))
     torch.cuda.reset_peak_memory_stats()
     proofs, path_shapes[path], first_ms, counts, progs = first_proofs(
-        path, p, 1, lambda: [prove(air, trace, fc, device=DEVICE)], split_max)
+        path, p, 1, lambda: [prove(air, trace, fc, device=DEVICE)])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     proof = proofs[0]
     path_launches[path] = counts["replay"]
@@ -1285,11 +1283,11 @@ def attest_step_shapes(targets, rows, att_fc, windows, b_record,
                                        windows)}
 
 
-def check_steps(path, clock, step_shapes, split_max):
-    """Each step's launches equal its shape's, in all and by variant."""
+def check_steps(path, clock, step_shapes):
+    """Each step's launches and states equal its shape's."""
     for step, shapes in step_shapes.items():
         check_launches(f"{path} {step}", clock.steps[step]["launches"],
-                       shapes, split_max)
+                       shapes)
 
 
 def check_shapes(rows, log_n, att_fc, runs=1):
@@ -1321,12 +1319,12 @@ def outer_step_shapes(inner, rows, att_fc, windows, composed=True,
     return out
 
 
-def check_outer_steps(path, clock, step_shapes, split_max):
+def check_outer_steps(path, clock, step_shapes):
     """The entry point marked exactly the steps of its shapes, and each
     step's launches equal its shape's."""
     check(list(clock.steps) == list(step_shapes),
           f"{path}: steps {list(clock.steps)}, want {list(step_shapes)}")
-    check_steps(path, clock, step_shapes, split_max)
+    check_steps(path, clock, step_shapes)
 
 
 def golden_rows(proof, fc, samples, copies=1):
@@ -1438,7 +1436,7 @@ def composed_inputs(proof, fc, att):
             "prove_shapes": prove_shapes, "aos_sizes": aos_sizes}
 
 
-def gamma_programs_phase(att, split_max, report, lap):
+def gamma_programs_phase(att, report, lap):
     """[gamma-programs], once per run (the attestation and the composed
     phases each start with it): the gamma sponge's chunk programs against
     the eager `_chain` on compose-small's pair stream, which runs eagerly
@@ -1480,8 +1478,7 @@ def gamma_programs_phase(att, split_max, report, lap):
               f"digests than the chunk program")
         per_call = {AOS: {n: steps + 1 + (warm["chunk"] if i == 0 else 0)},
                     SOA: {}}
-        check_launches(f"gamma-programs {name}", launches[name, i], per_call,
-                       split_max)
+        check_launches(f"gamma-programs {name}", launches[name, i], per_call)
     # the states program against the recorded chain, over two chunks
     start = p2.poseidon2_permute(gl.zeros((n, 12), DEVICE))
     _, ins, outs = attp._chain(GL(start.lo.clone(), start.hi.clone()),
@@ -1528,7 +1525,7 @@ def gamma_programs_phase(att, split_max, report, lap):
     lap("gamma-programs")
 
 
-def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
+def attestation_phases(att, proof, fc, cfg, path_launches,
                        path_shapes, report, lap):
     """[gamma-programs] (once per run), [attest-golden], [check-golden],
     [attest-small], [attest-many]."""
@@ -1538,7 +1535,7 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
     small, small_fc, small_att = (att[k] for k in
                                   ("small", "small_fc", "small_att"))
     copies = att["copies"]
-    gamma_programs_phase(att, split_max, report, lap)
+    gamma_programs_phase(att, report, lap)
     # ---- attest the golden fib(64) proof: the committed bundle, byte for
     # byte (made by the JAX package's device prover)
     fib = FibonacciAir()
@@ -1556,10 +1553,10 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
                   // grind_window(att_fc) + 1)
     ag_steps = attest_step_shapes([(cfg, 1)], rows_g, att_fc, ag_windows, 1,
                                   runs)
-    check_steps("attest_golden", clock, ag_steps, split_max)
+    check_steps("attest_golden", clock, ag_steps)
     path_shapes["attest_golden"] = add_shapes(*ag_steps.values())
     check_launches("attest_golden", path_launches["attest_golden"],
-                   path_shapes["attest_golden"], split_max)
+                   path_shapes["attest_golden"])
     dev_ag, prof_ag = UNPROFILED, None
     la = path_launches["attest_golden"]
     print(f"[attest-golden] attest(fib(64) fixture proof, FibonacciAir(), "
@@ -1568,8 +1565,9 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
           f"STARK; bundle byte-equal to artifacts/attestation_fibonacci.json "
           f"({len(golden_text)} bytes); {ag_ms:.1f} ms, steps (ms, launches "
           f"{AOS}/{SOA}): {clock.text()}; launches {AOS} {la[AOS]} "
-          f"({la[AOS + '.split']} split), {SOA} {la[SOA]} ({la[SOA + '.split']}"
-          f" split; {ag_windows} grind windows), as each step's shape gives; "
+          f"({la[AOS + '.states']} states), {SOA} {la[SOA]} "
+          f"({la[SOA + '.states']} states; {ag_windows} grind windows), as "
+          f"each step's shape gives; "
           f"peak {ag_peak:.2f} GB; {dev_ag}")
     report["attest_golden"] = {
         "n_rows": bundle_g.n_rows, "ms": ag_ms, "steps": clock.steps,
@@ -1589,7 +1587,7 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
     path_shapes["check_golden"] = check_shapes(rows_g, att_logs["golden"],
                                                att_fc, runs)
     check_launches("check_golden", path_launches["check_golden"],
-                   path_shapes["check_golden"], split_max)
+                   path_shapes["check_golden"])
     dev_cg, prof_cg = UNPROFILED, None
 
     def golden_tamper(kind):
@@ -1621,7 +1619,8 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
     lc = path_launches["check_golden"]
     print(f"[check-golden] check_attestation of the committed bundle with the "
           f"port's verifier on the card: accepted in {cg_ms:.1f} ms, launches "
-          f"{AOS} {lc[AOS]} ({lc[AOS + '.split']} split) as the shape gives, "
+          f"{AOS} {lc[AOS]} ({lc[AOS + '.states']} states) as the shape "
+          f"gives, "
           f"{SOA} {lc[SOA]}; {dev_cg}; refused: "
           + ", ".join(f"{k} ({t:.1f} ms)" for k, t in tamper_ms.items()))
     report["check_golden"] = {"ms": cg_ms, "launches": lc,
@@ -1644,10 +1643,10 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
             sp[0], derive_config(sp[0], small_fc), fib, sb.samples),
         small_att, sb.stark.opening_proof.fri_proof.pow_witness
         // grind_window(small_att) + 1, 1, runs)
-    check_steps("attest_small", clock, sms_steps, split_max)
+    check_steps("attest_small", clock, sms_steps)
     path_shapes["attest_small"] = add_shapes(*sms_steps.values())
     check_launches("attest_small", path_launches["attest_small"],
-                   path_shapes["attest_small"], split_max)
+                   path_shapes["attest_small"])
     small_steps = clock.text()
     t0 = time.perf_counter()
     sm = attest_mod.attest_many(sp, fib, small_fc, att_fri_config=small_att,
@@ -1690,10 +1689,10 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
                   // grind_window(att_fc) + 1)
     am_steps = attest_step_shapes([(cfg, copies)], rows_m, att_fc,
                                   am_windows, copies, runs)
-    check_steps("attest_many", clock, am_steps, split_max)
+    check_steps("attest_many", clock, am_steps)
     path_shapes["attest_many"] = add_shapes(*am_steps.values())
     check_launches("attest_many", path_launches["attest_many"],
-                   path_shapes["attest_many"], split_max)
+                   path_shapes["attest_many"])
     am_step_text = clock.text()
     runs = verify_runs(att_verifier(att_logs["many"], att_fc))
     t0 = time.perf_counter()
@@ -1706,7 +1705,7 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
     path_shapes["check_many"] = check_shapes(rows_m, att_logs["many"], att_fc,
                                              runs)
     check_launches("check_many", path_launches["check_many"],
-                   path_shapes["check_many"], split_max)
+                   path_shapes["check_many"])
     flipped = copy.deepcopy(mb)
     flipped.samples[copies // 2][11] = (flipped.samples[copies // 2][11]
                                         + 1) % P
@@ -1722,8 +1721,8 @@ def attestation_phases(att, proof, fc, cfg, split_max, path_launches,
           f"{len(golden.samples)} samples; {mb.n_rows} rows, a 2^"
           f"{mb.stark.degree_bits} x {VerifierAir().width()} STARK; "
           f"{am_ms:.1f} ms, steps (ms, launches {AOS}/{SOA}): {am_step_text}; "
-          f"launches {AOS} {lm[AOS]}, {SOA} {lm[SOA]} ({lm[SOA + '.split']} "
-          f"split), as each step's shape gives; peak {am_peak:.2f} GB; "
+          f"launches {AOS} {lm[AOS]}, {SOA} {lm[SOA]} ({lm[SOA + '.states']} "
+          f"states), as each step's shape gives; peak {am_peak:.2f} GB; "
           f"{dev_am}; check_attestations accepted in {cm_ms:.1f} ms "
           f"({path_launches['check_many'][AOS]} launches), one proof's "
           f"flipped sample refused")
@@ -1761,7 +1760,7 @@ def hold_to_jax(path, got, want, log_n):
           f"{path}: the statement differs from JAX's")
 
 
-def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
+def composed_phases(att, proof, fc, path_launches, path_shapes,
                     report, lap):
     """[gamma-programs] (once per run), [compose-small],
     [attest-attestation], [compose-golden], [check-composed-golden]."""
@@ -1770,7 +1769,7 @@ def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
     sp, inner_s = cin["small_proofs"], cin["small_inner"]
     small_fc, small_att, att_fc = att["small_fc"], att["small_att"], att["att_fc"]
     fib = FibonacciAir()
-    gamma_programs_phase(att, split_max, report, lap)
+    gamma_programs_phase(att, report, lap)
     torch.cuda.empty_cache()
 
     # ---- the small composition: the JAX values, the int oracle, the
@@ -1791,10 +1790,10 @@ def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
                // grind_window(small_att) + 1)
     steps = outer_step_shapes(inner_s, rows["compose_small"], small_att,
                               windows, record_runs=runs)
-    check_outer_steps("compose_small", clock, steps, split_max)
+    check_outer_steps("compose_small", clock, steps)
     path_shapes["compose_small"] = add_shapes(*steps.values())
     check_launches("compose_small", path_launches["compose_small"],
-                   path_shapes["compose_small"], split_max)
+                   path_shapes["compose_small"])
     t0 = time.perf_counter()
     check(refimpl_verify(cs_.outer.stark, attest_mod._verifier_air_of(
         cs_.outer), small_att).ok,
@@ -1898,10 +1897,10 @@ def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
                // grind_window(small_att) + 1)
     steps = outer_step_shapes(inner_s, rows["attest_attestation"], small_att,
                               windows, composed=False, record_runs=runs)
-    check_outer_steps("attest_attestation", clock, steps, split_max)
+    check_outer_steps("attest_attestation", clock, steps)
     path_shapes["attest_attestation"] = add_shapes(*steps.values())
     check_launches("attest_attestation", path_launches["attest_attestation"],
-                   path_shapes["attest_attestation"], split_max)
+                   path_shapes["attest_attestation"])
 
     def check_attested(inner, target):
         t0 = time.perf_counter()
@@ -1960,10 +1959,10 @@ def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
                // grind_window(att_fc) + 1)
     steps = outer_step_shapes(golden, rows["compose_golden"], att_fc, windows,
                               record_runs=runs)
-    check_outer_steps("compose_golden", clock, steps, split_max)
+    check_outer_steps("compose_golden", clock, steps)
     path_shapes["compose_golden"] = add_shapes(*steps.values())
     check_launches("compose_golden", path_launches["compose_golden"],
-                   path_shapes["compose_golden"], split_max)
+                   path_shapes["compose_golden"])
     lg = path_launches["compose_golden"]
     print(f"[compose-golden] attest_composed(fib(64) fixture proof, "
           f"FibonacciAir(), FriConfig(1, 100, 16), inner=artifacts/"
@@ -1972,8 +1971,8 @@ def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
           f"STARK proved at S={s_rule} quotient segments; outer samples, "
           f"gammas, accumulator and statement equal to the JAX package's; "
           f"{cg_ms:.1f} ms, steps (ms, launches {AOS}/{SOA}, peak): "
-          f"{clock.text()}; launches {AOS} {lg[AOS]} ({lg[AOS + '.split']} "
-          f"split), {SOA} {lg[SOA]} ({lg[SOA + '.split']} split; {windows} "
+          f"{clock.text()}; launches {AOS} {lg[AOS]} ({lg[AOS + '.states']} "
+          f"states), {SOA} {lg[SOA]} ({lg[SOA + '.states']} states; {windows} "
           f"grind windows), as each step's shape gives; peak "
           f"{clock.peak_gb():.2f} GB; {UNPROFILED}")
     report["compose_golden"] = {
@@ -1999,11 +1998,11 @@ def composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
                         SOA: {}},
              "verify": {AOS: att_verifier_shapes(19, att_fc, runs=runs),
                         SOA: {}}}
-    check_outer_steps("check_composed_golden", clock, steps, split_max)
+    check_outer_steps("check_composed_golden", clock, steps)
     path_shapes["check_composed_golden"] = add_shapes(*steps.values())
     check_launches("check_composed_golden",
                    path_launches["check_composed_golden"],
-                   path_shapes["check_composed_golden"], split_max)
+                   path_shapes["check_composed_golden"])
     golden_tampers = {
         "statement_stripped": dataclasses.replace(cg, statement=None),
         "trace_width_99": restated(cg, target_shape=dict(
@@ -2076,7 +2075,7 @@ def gl_equal(a, b):
 
 
 def multi_device_phases(proof, fc, cfg, fixture_text, expected, ws_batch,
-                        want_batch, bv_batch, prove_sha, split_max,
+                        want_batch, bv_batch, prove_sha,
                         path_launches, path_shapes, report, lap):
     """[nccl], [sharded], [multihost], [four-step], [prove-lde-mesh],
     [batch-prove-mesh] through one world-size-1 NCCL process group, which
@@ -2106,26 +2105,26 @@ def multi_device_phases(proof, fc, cfg, fixture_text, expected, ws_batch,
               f"{nccl_ms:.1f} ms")
         report["nccl"] = {"ms": nccl_ms, "address": f"tcp://{address}"}
         lap("nccl")
-        _sharded_phase(proof, fc, cfg, expected, mesh, fib, split_max,
+        _sharded_phase(proof, fc, cfg, expected, mesh, fib,
                        path_launches, path_shapes, report)
         lap("sharded")
         _multihost_phase(proof, cfg, ws_batch, want_batch, bv_batch,
-                         host_mesh, fib, split_max, path_launches,
+                         host_mesh, fib, path_launches,
                          path_shapes, report)
         lap("multihost")
         _four_step_phase(mesh, report)
         lap("four-step")
         _prove_lde_mesh_phase(fc, fixture_text, prove_sha, mesh, fib,
-                              split_max, path_launches, path_shapes, report)
+                              path_launches, path_shapes, report)
         lap("prove-lde-mesh")
-        _batch_prove_mesh_phase(fc, fixture_text, mesh, fib, split_max,
+        _batch_prove_mesh_phase(fc, fixture_text, mesh, fib,
                                 path_launches, path_shapes, report)
         lap("batch-prove-mesh")
     finally:
         dist.destroy_process_group()
 
 
-def _sharded_phase(proof, fc, cfg, expected, mesh, fib, split_max,
+def _sharded_phase(proof, fc, cfg, expected, mesh, fib,
                    path_launches, path_shapes, report):
     sv = ShardedVerifier(fib, cfg, mesh, device=DEVICE)
     check((sv.Q_pad, sv.n_dev) == (fc.num_queries, 1),
@@ -2146,7 +2145,7 @@ def _sharded_phase(proof, fc, cfg, expected, mesh, fib, split_max,
     path_shapes["verify_sharded"] = {
         AOS: verify_path_shapes(get_verifier(fib, cfg, DEVICE), 1), SOA: {}}
     check_launches("verify_sharded", path_launches["verify_sharded"],
-                   path_shapes["verify_sharded"], split_max)
+                   path_shapes["verify_sharded"])
     bad = copy.deepcopy(proof)
     bad.opening_proof.query_openings[99][1].opening_proof[0][0] ^= 4
     rt = verdict(sv.verify(bad))
@@ -2182,7 +2181,7 @@ def _sharded_phase(proof, fc, cfg, expected, mesh, fib, split_max,
 
 
 def _multihost_phase(proof, cfg, ws_batch, want_batch, bv, host_mesh, fib,
-                     split_max, path_launches, path_shapes, report):
+                     path_launches, path_shapes, report):
     mv = MultiHostBatchVerifier(fib, cfg, host_mesh, device=DEVICE)
     b, q = ws_batch["obs"].shape[0], cfg.fri_config.num_queries
     check((mv.n_batch, mv.n_query, mv.Q_pad) == (1, 1, q),
@@ -2197,7 +2196,7 @@ def _multihost_phase(proof, cfg, ws_batch, want_batch, bv, host_mesh, fib,
     path_shapes["verify_multihost"] = {
         AOS: verify_path_shapes(get_verifier(fib, cfg, DEVICE), b), SOA: {}}
     check_launches("verify_multihost", path_launches["verify_multihost"],
-                   path_shapes["verify_multihost"], split_max)
+                   path_shapes["verify_multihost"])
     # in turns with [batch]'s BatchVerifier (its programs of this
     # signature, replayed) on the same witness: its time in this phase,
     # not [batch]'s, minutes earlier
@@ -2280,7 +2279,7 @@ def _four_step_phase(mesh, report):
     torch.cuda.empty_cache()
 
 
-def _prove_lde_mesh_phase(fc, fixture_text, prove_sha, mesh, fib, split_max,
+def _prove_lde_mesh_phase(fc, fixture_text, prove_sha, mesh, fib,
                           path_launches, path_shapes, report):
     p64 = TorchProver(fib, 6, fc, DEVICE, lde_mesh=mesh)
     with Collectives() as coll64:
@@ -2292,7 +2291,7 @@ def _prove_lde_mesh_phase(fc, fixture_text, prove_sha, mesh, fib, split_max,
         6, fc, fib, 1, pr.opening_proof.fri_proof.pow_witness
         // grind_window(fc) + 1)
     check_launches("prove_64_lde_mesh", path_launches["prove_64_lde_mesh"],
-                   path_shapes["prove_64_lde_mesh"], split_max)
+                   path_shapes["prove_64_lde_mesh"])
     # the trace's LDE commit (the quotient chunks' LDEs are not meshed, as
     # in the JAX prover): two all-to-alls and one all-gather
     check(dict(coll64.calls) == {"all_to_all_single": 2, "all_gather": 1},
@@ -2329,7 +2328,7 @@ def _prove_lde_mesh_phase(fc, fixture_text, prove_sha, mesh, fib, split_max,
             torch.cuda.synchronize()
             plain.append((time.perf_counter() - t0) * 1e3)
     check_launches("prove_lde_mesh", path_launches["prove_lde_mesh"],
-                   path_shapes["prove_lde_mesh"], split_max)
+                   path_shapes["prove_lde_mesh"])
     stage_ms = clock.ms()
     print(f"[prove-lde-mesh] TorchProver(lde_mesh=make_mesh()): fib(64) "
           f"byte-equal to the fixture (two all_to_all_single, one "
@@ -2353,7 +2352,7 @@ def _prove_lde_mesh_phase(fc, fixture_text, prove_sha, mesh, fib, split_max,
     torch.cuda.empty_cache()
 
 
-def _batch_prove_mesh_phase(fc, fixture_text, mesh, fib, split_max,
+def _batch_prove_mesh_phase(fc, fixture_text, mesh, fib,
                             path_launches, path_shapes, report):
     traces = np.asarray([fibonacci_trace(64)] * B_PROVE, dtype=np.uint64)
     bp = BatchProver(fib, 6, fc, device=DEVICE)
@@ -2377,7 +2376,7 @@ def _batch_prove_mesh_phase(fc, fixture_text, mesh, fib, split_max,
     path_shapes["batch_prove_mesh"] = prove_path_shapes(6, fc, fib, B_PROVE,
                                                         windows)
     check_launches("batch_prove_mesh", path_launches["batch_prove_mesh"],
-                   path_shapes["batch_prove_mesh"], split_max)
+                   path_shapes["batch_prove_mesh"])
     del proofs
     plain = []                          # in turns with the unmeshed batch
     for meshed in (False, True):
@@ -2450,8 +2449,7 @@ def tooling_phase(proof, fc, cfg, verify_batch, want, batch_qps, at_2_21,
         check(aos_in_trace > 0, f"[tooling] the trace's {sum(kernels.values())}"
               f" kernels hold no state-major Poseidon2 kernel")
         found = (f"{aos_in_trace} of the batch's {launched[AOS]} state-major"
-                 f" launches in it ({split_in_trace} of "
-                 f"{launched[AOS + '.split']} split)"
+                 f" launches in it ({split_in_trace} of them split)"
                  + ("" if aos_in_trace == launched[AOS]
                     else ", the profiler missed the rest"))
     else:
@@ -2707,7 +2705,7 @@ def main(argv=None):
     ok, path_launches["verify_single"] = counted(verify_one)
     check(ok, "fixture rejected")
     check_launches("verify_single", path_launches["verify_single"],
-                   path_shapes["verify_single"], split_max)
+                   path_shapes["verify_single"])
     lat = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -2727,7 +2725,7 @@ def main(argv=None):
 
     lap("single")
     # ---- the fused verification: one captured CUDA graph
-    line, report["fused"] = fused_phase(proof, fc, cfg, expected, split_max,
+    line, report["fused"] = fused_phase(proof, fc, cfg, expected,
                                         path_launches, path_shapes)
     print(line)
 
@@ -2750,7 +2748,7 @@ def main(argv=None):
     ok, path_launches["verify_batch"] = counted(verify_batch)
     check(torch.equal(ok, want), "batch verdicts differ")
     check_launches("verify_batch", path_launches["verify_batch"],
-                   path_shapes["verify_batch"], split_max)
+                   path_shapes["verify_batch"])
     wall = in_turns(lambda fused: check(torch.equal(
         verify_batch(fused=fused), want), "batch verdicts differ"), 3)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2821,7 +2819,7 @@ def main(argv=None):
     check(compact(p64) == fixture_text,
           "fib(64) proof differs from tests/fixtures/proof_fibonacci_refimpl.json")
     check_launches("prove_64", path_launches["prove_64"],
-                   path_shapes["prove_64"], split_max)
+                   path_shapes["prove_64"])
     print(f"[prove-64] fib(64) proof byte-equal to the fixture "
           f"({len(fixture_text)} bytes, PoW witness {w64}); launches: "
           f"{AOS} {path_launches['prove_64'][AOS]}, {SOA} "
@@ -2847,7 +2845,7 @@ def main(argv=None):
     trace = np.asarray(fibonacci_trace(1 << LOG_N), dtype=np.uint64)
     setup_s = time.perf_counter() - t0
     big, line, report["prove"] = measure_prove(
-        air, trace, fc, "prove", path_launches, path_shapes, split_max)
+        air, trace, fc, "prove", path_launches, path_shapes)
     report["prove"]["trace_setup_s"] = setup_s
     prove_sha = hashlib.sha256(compact(big).encode()).hexdigest()
     report["prove"]["sha256"] = prove_sha
@@ -2914,7 +2912,7 @@ def main(argv=None):
     torch.cuda.reset_peak_memory_stats()
     proofs, path_shapes["batch_prove"], bp_first, bp_counts, bp_progs = \
         first_proofs("batch_prove", bp.base, B_PROVE,
-                     lambda: bp.prove(traces), split_max)
+                     lambda: bp.prove(traces))
     bp_first_peak = torch.cuda.max_memory_allocated() / 1e9
     path_launches["batch_prove"] = bp_counts["replay"]
     # lane 0's JSON is the fixture's, every other valid lane equals lane 0
@@ -2994,7 +2992,7 @@ def main(argv=None):
         lambda: mmcs_verify_batch(root, rows, logs, index, sibs))
     check(bool(ok.all()), "mmcs-multi: an opening of the fixture rejected")
     check_launches("mmcs_multi", path_launches["mmcs_multi"],
-                   path_shapes["mmcs_multi"], split_max)
+                   path_shapes["mmcs_multi"])
     # tampers, each on a lane of its own: a sibling flipped just below each
     # fold-in (the walk's last compression before it), a row value of each
     # short group changed
@@ -3057,7 +3055,7 @@ def main(argv=None):
         path_shapes[path] = prove_path_shapes(
             6, fc, ms_air, 1, pr.opening_proof.fri_proof.pow_witness
             // grind_window(fc) + 1)
-        check_launches(path, path_launches[path], path_shapes[path], split_max)
+        check_launches(path, path_launches[path], path_shapes[path])
         ms_proofs[name] = pr
         print(f"[prove-{name}-64] {ms_air.name()}Air, 64 rows: proof "
               f"({got['bytes']} bytes) equal to the JAX package's digest "
@@ -3093,7 +3091,7 @@ def main(argv=None):
     ok, path_launches["verify_batch_rlc"] = counted(verify_batch_rlc)
     check(torch.equal(ok, want), "batch-rlc verdicts differ")
     check_launches("verify_batch_rlc", path_launches["verify_batch_rlc"],
-                   path_shapes["verify_batch_rlc"], split_max)
+                   path_shapes["verify_batch_rlc"])
     wall = in_turns(lambda fused: check(torch.equal(
         verify_batch_rlc(fused=fused), want), "batch-rlc verdicts differ"), 3)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3129,7 +3127,7 @@ def main(argv=None):
     trace = rng.integers(0, P, size=(n_big, 2), dtype=np.uint64)
     big, line, report["prove_rlc"] = measure_prove(
         RlcAir(), trace, fc, "prove_rlc", path_launches, path_shapes,
-        split_max, profiled=False, rounds=1)
+        profiled=False, rounds=1)
     check(verdict(verify_proof(big, RlcAir(), fc, device=DEVICE))["ok"],
           "RLC 2^20 proof rejected by verify_proof")
     flags = {}
@@ -3155,7 +3153,7 @@ def main(argv=None):
     trace = np.stack([tags, va, tags[perm], va[perm]], axis=1)
     big, line, report["prove_multiset"] = measure_prove(
         MultisetAir(), trace, fc, "prove_multiset", path_launches,
-        path_shapes, split_max, profiled=False, rounds=1)
+        path_shapes, profiled=False, rounds=1)
     check(verdict(verify_proof(big, MultisetAir(), fc, device=DEVICE))["ok"],
           "multiset 2^20 proof rejected by verify_proof")
     trace[n_big // 3, 3] = (int(trace[n_big // 3, 3]) + 1) % P
@@ -3214,7 +3212,7 @@ def main(argv=None):
     path_shapes["batch_prove_rlc"] = prove_path_shapes(
         6, fc, RlcAir(), B_PROVE, bp_windows)
     check_launches("batch_prove_rlc", path_launches["batch_prove_rlc"],
-                   path_shapes["batch_prove_rlc"], split_max)
+                   path_shapes["batch_prove_rlc"])
     # staged, as a one-shot batch runs ([batch-prove] measures the
     # programs)
     runs, peak_gb, stage_ms = timed_runs(bp_rlc.prove, traces, fused=False)
@@ -3273,7 +3271,7 @@ def main(argv=None):
         5, fc32, kair, 1, p32.opening_proof.fri_proof.pow_witness
         // grind_window(fc32) + 1)
     check_launches("prove_keccak_32", path_launches["prove_keccak_32"],
-                   path_shapes["prove_keccak_32"], split_max)
+                   path_shapes["prove_keccak_32"])
     r = verify_proof(p32, kair, fc32, device=DEVICE)
     check(verdict(r) == {k: v for k, v in expected_k32["verdict"].items()
                          if k != "shape_ok"} and r.shape_ok,
@@ -3317,7 +3315,7 @@ def main(argv=None):
     ksetup_s = time.perf_counter() - t0
     kbig, line, report["prove_keccak"] = measure_prove(
         kair, ktrace, fc, "prove_keccak", path_launches, path_shapes,
-        split_max, profiled=False, rounds=1)
+        profiled=False, rounds=1)
     del ktrace
     cfg_k = derive_config(kbig, fc)
     check(cfg_k == v_keccak.config, "the Keccak proof's shape differs")
@@ -3348,7 +3346,7 @@ def main(argv=None):
     got, path_launches["verify_keccak"] = counted(verify_keccak)
     check(got["ok"], "the Keccak 2^12 proof was rejected by verify_proof")
     check_launches("verify_keccak", path_launches["verify_keccak"],
-                   path_shapes["verify_keccak"], split_max)
+                   path_shapes["verify_keccak"])
     lat = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -3389,7 +3387,7 @@ def main(argv=None):
     ok, path_launches["verify_batch_keccak"] = counted(verify_batch_keccak)
     check(torch.equal(ok, want), "batch-keccak verdicts differ")
     check_launches("verify_batch_keccak", path_launches["verify_batch_keccak"],
-                   path_shapes["verify_batch_keccak"], split_max)
+                   path_shapes["verify_batch_keccak"])
     wall = in_turns(lambda fused: check(torch.equal(
         verify_batch_keccak(fused=fused), want),
         "batch-keccak verdicts differ"), 2)
@@ -3458,7 +3456,7 @@ def main(argv=None):
         // grind_window(fc) + 1)
     check_launches("prove_keccak_chunked",
                    path_launches["prove_keccak_chunked"],
-                   path_shapes["prove_keccak_chunked"], split_max)
+                   path_shapes["prove_keccak_chunked"])
     del kch
     off = unchunked_prover(kair, KECCAK_LOG_N, fc)
     torch.cuda.empty_cache()
@@ -3496,7 +3494,7 @@ def main(argv=None):
     torch.cuda.reset_peak_memory_stats()
     (kproofs, path_shapes["prove_batch_keccak"], bk_first_ms, bk_counts,
      bk_progs) = first_proofs("prove_batch_keccak", bpk.base, B_KECCAK_PROVE,
-                              lambda: bpk.prove(ktraces), split_max)
+                              lambda: bpk.prove(ktraces))
     bk_first = bk_first_ms["staged"]
     bk_peak = torch.cuda.max_memory_allocated() / 1e9
     path_launches["prove_batch_keccak"] = bk_counts["replay"]
@@ -3515,7 +3513,7 @@ def main(argv=None):
         path_shapes["verify_batch_prove_keccak"][AOS], runs)
     check_launches("verify_batch_prove_keccak",
                    path_launches["verify_batch_prove_keccak"],
-                   path_shapes["verify_batch_prove_keccak"], split_max)
+                   path_shapes["verify_batch_prove_keccak"])
     bk_windows = max(pr.opening_proof.fri_proof.pow_witness
                      for pr in kproofs) // grind_window(fc) + 1
     del lanes8, bvk8
@@ -3552,9 +3550,9 @@ def main(argv=None):
           + ", ".join(f"{how} {t:.1f} ms" for how, t in bk_first_ms.items())
           + f" (peak {bk_peak:.2f} GB), each byte-equal; {kfs:.1f} keccak-f/s"
           f" replayed, {kfs_staged:.1f} staged; launches {AOS} "
-          f"{lk[AOS]} ({lk[AOS + '.split']} split), {SOA} {lk[SOA]} "
-          f"({lk[SOA + '.whole']} one thread per state, {lk[SOA + '.split']}"
-          f" split; {bk_windows} grind windows) staged and replayed, as the "
+          f"{lk[AOS]} ({lk[AOS + '.states']} states), {SOA} {lk[SOA]} "
+          f"({lk[SOA + '.states']} states; {bk_windows} grind windows) "
+          f"staged and replayed, as the "
           f"shape gives, at the capture {AOS} {bk_counts['capture'][AOS]}, "
           f"{SOA} {bk_counts['capture'][SOA]}; "
           + prover_programs_text(bk_progs) + f"; {turns_text(bk_turns)}; "
@@ -3607,12 +3605,12 @@ def main(argv=None):
     report["gl3"] = {"n": n3, "ms": gl3_ms}
 
     lap("gl3")
-    attestation_phases(att, proof, fc, cfg, split_max, path_launches,
+    attestation_phases(att, proof, fc, cfg, path_launches,
                        path_shapes, report, lap)
-    composed_phases(att, proof, fc, split_max, path_launches, path_shapes,
+    composed_phases(att, proof, fc, path_launches, path_shapes,
                     report, lap)
     multi_device_phases(proof, fc, cfg, fixture_text, expected, *batch_in,
-                        prove_sha, split_max, path_launches, path_shapes,
+                        prove_sha, path_launches, path_shapes,
                         report, lap)
     del batch_in
     line, report["graphs"] = graphs_summary()
@@ -3723,11 +3721,9 @@ def main(argv=None):
             "at_2_pow_21": same_n[kernel], "paths": paths[kernel],
             "split_max_states": split_max[kernel],
             "main_path": MAIN_PATH,
-            "launches_split": path_launches[MAIN_PATH][kernel + ".split"],
-            "launches_whole": path_launches[MAIN_PATH][kernel + ".whole"],
-            "launches_by_variant": {
-                p: {var: path_launches[p][f"{kernel}.{var}"]
-                    for var in ("whole", "split")} for p in path_launches},
+            "states": path_launches[MAIN_PATH][kernel + ".states"],
+            "states_by_path": {p: v[kernel + ".states"]
+                               for p, v in path_launches.items()},
             "variant_ms": variant_ms[kernel],
             "split_faster_up_to": crossover[kernel],
             "sass_alu_per_state": {

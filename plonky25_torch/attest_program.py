@@ -1106,7 +1106,8 @@ def _chain_program(kind: str, fn, n: int, device) -> StaticProgram:
         if prog is None:
             template = (gl.zeros((n, WIDTH), device),
                         gl.zeros((GAMMA_CHUNK, n, 2), device))
-            prog = _chain_fn_cache[key] = StaticProgram(fn, template, device)
+            prog = _chain_fn_cache[key] = StaticProgram(
+                fn, template, device, name=f"{kind}_{n}")
     return prog
 
 

@@ -11,10 +11,7 @@ tensor's device alone:
 
 Each kernel has two hand-written variants, one thread per state and three
 threads per state; its C launcher picks one by the number of states alone
-(the crossover is a constant of the .cu file) and reports which it ran.
-`poseidon2_permute.launches` counts the kernel's launches, so a run can
-show that its main path went through the kernel, and `launches_whole` /
-`launches_split` count them by the variant the launcher reported.
+(the crossover is a constant of the .cu file).
 `_poseidon2_permute_variant` is a measurement hook, not part of this
 contract: it runs the variant it is told to at any size, so that each can
 be held to the plain version and timed on both sides of the crossover.
@@ -29,18 +26,23 @@ states, planes (12, ...): lane k of every state in planes[k].  It picks by
 device in the same way, between `poseidon2_permute_soa_plain` (a mirror of
 the Pallas `_soa_*` helpers on a list of 12 lane arrays) and the kernel
 csrc/poseidon2_soa.cu, which replaces the Pallas kernel of
-poseidon2_pallas.py:219; `poseidon2_permute_soa.launches` (and by variant)
-is its own count.
+poseidon2_pallas.py:219.
 
 `observe_states(cb)` lets a caller see the work of both wrappers whatever
 runs it: inside its block every call of either is entered as
 `with cb(n_states):`, around the plain version or the launch
 (utils/roofline.py's count_int_ops charges the permutation's work model
-there).  Both counts and observers run in Python, which a CUDA graph
-does not replay: a graph's owner captures under `recording_launches` and
+there).  Where tracing is on (utils/profiling.py), every call counts its
+states in `poseidon2.<kernel>.states`, and every launch of a kernel that
+went through counts in `poseidon2.<kernel>.launches`, <kernel> `w12`
+(state-major) or `soa` (lane-major): a call of the plain version permutes
+states and launches nothing.  Counts and observers run in Python, which a
+CUDA graph does not replay: a graph's owner captures under
+`recording_launches`, which keeps each launch's kernel and states, and
 calls `replay_launches` at each replay (utils/graphs.py), so a launch is
-counted where the kernel runs.  `load_kernels` builds both libraries
-before a capture, during which ops/build.py refuses to build.
+counted where the kernel runs.
+`load_kernels` builds both libraries before a capture, during which
+ops/build.py refuses to build.
 `poseidon2_permute_auto` is the JAX package's name for the same
 dispatch as `poseidon2_permute`.  JAX's `poseidon2_permute_jit` (a jitted
 alias) and `PALLAS_DISABLED` (the P25_DISABLE_PALLAS environment switch,
@@ -69,6 +71,7 @@ from ..constants import (
 )
 from ..fields import gl
 from ..fields.goldilocks import GL
+from ..utils import profiling
 from . import build
 
 KERNEL_SOURCE = "plonky25_torch/csrc/poseidon2.cu"
@@ -138,6 +141,10 @@ def poseidon2_permute_plain(state: GL) -> GL:
 # ------------------------------------------------------------ observers
 
 _observers = []     # callbacks of the open observe_states blocks
+_record = None      # the LaunchRecord of an open recording_launches block
+_OFF = contextlib.nullcontext()
+_COUNTERS = {k: (f"poseidon2.{k}.states", f"poseidon2.{k}.launches")
+             for k in ("w12", "soa")}
 
 
 @contextlib.contextmanager
@@ -152,16 +159,35 @@ def observe_states(cb):
         _observers.remove(cb)
 
 
-def _observed(state: GL):
-    """The observers' contexts for one call on `state` (12 lanes a state,
-    on either axis)."""
+def _entered(n: int):
+    """The observers' contexts for one call on n states."""
     if not _observers:
-        return contextlib.nullcontext()
-    n = state.lo.numel() // WIDTH
+        return _OFF
     stack = contextlib.ExitStack()
     for cb in list(_observers):
         stack.enter_context(cb(n))
     return stack
+
+
+def _observed(state: GL, kernel: str):
+    """What one call of `kernel` on `state` (12 lanes a state, on either
+    axis) runs inside: its states counted where tracing is on, and the
+    observers' contexts; nothing inside recording_launches, where _launch
+    records the call."""
+    if _record is not None or (not _observers and not profiling.tracing()):
+        return _OFF
+    n = state.lo.numel() // WIDTH
+    profiling.count(_COUNTERS[kernel][0], n)
+    return _entered(n)
+
+
+def _launched(kernel: str, n: int) -> None:
+    """One launch of `kernel` on n states went through: recorded inside
+    recording_launches, else counted where tracing is on."""
+    if _record is not None:
+        _record.calls.append((kernel, n))
+    else:
+        profiling.count(_COUNTERS[kernel][1])
 
 
 # ------------------------------------------------------------ the kernel
@@ -210,12 +236,12 @@ def check_kernel_input(state: GL, lane_axis: int = -1) -> None:
                          f"{lo.device} and {hi.device}")
 
 
-def _launch(wrapper, built: build.Built, entry: str, state: GL,
+def _launch(kernel: str, built: build.Built, entry: str, state: GL,
             split=None) -> GL:
     """Launch `entry` of `built` on `state` (checked by the caller) into
     new tensors: the variant n selects, or through the hook `entry`_variant
-    the one `split` names.  Counts the launch on `wrapper` by the variant
-    that ran."""
+    the one `split` names.  Counts the launch as one of `kernel`'s once it
+    went through (_launched)."""
     lo, hi = state
     out_lo, out_hi = torch.empty_like(lo), torch.empty_like(hi)
     n = lo.numel() // WIDTH
@@ -226,31 +252,28 @@ def _launch(wrapper, built: build.Built, entry: str, state: GL,
         ptrs = (lo.data_ptr(), hi.data_ptr(), out_lo.data_ptr(),
                 out_hi.data_ptr(), n)
         if split is None:
+            # the launcher reports the variant it ran (the kernel tests
+            # hold it to the crossover; the device trace names it)
             ran_split = ctypes.c_int(0)
             err = getattr(built.lib, entry)(*ptrs, stream,
                                             ctypes.byref(ran_split))
-            split = bool(ran_split.value)
         else:
             entry += "_variant"
             err = getattr(built.lib, entry)(*ptrs, int(split), stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {err}")
-    wrapper.launches += 1
-    if split:
-        wrapper.launches_split += 1
-    else:
-        wrapper.launches_whole += 1
+    _launched(kernel, n)
     return GL(out_lo, out_hi)
 
 
 def poseidon2_permute(state: GL) -> GL:
     """Permute a GL of shape (..., 12): the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors (see the module docstring)."""
-    with _observed(state):
+    with _observed(state, "w12"):
         if state.lo.device.type == "cpu" and state.hi.device.type == "cpu":
             return poseidon2_permute_plain(state)
         check_kernel_input(state)
-        return _launch(poseidon2_permute, kernel_library(),
+        return _launch("w12", kernel_library(),
                        "p25_poseidon2_permute_w12", state)
 
 
@@ -264,15 +287,12 @@ def _poseidon2_permute_variant(state: GL, split: bool) -> GL:
     """Measurement hook, not part of the wrapper's contract: the kernel's
     variant `split` (three threads per state) or not (one) on CUDA
     state-major states, at any size, for holding each variant to the plain
-    version and timing it on both sides of the crossover.  Counted on
-    poseidon2_permute."""
+    version and timing it on both sides of the crossover.  Counted as
+    poseidon2_permute's calls are."""
     check_kernel_input(state)
-    return _launch(poseidon2_permute, kernel_library(),
-                   "p25_poseidon2_permute_w12", state, split)
-
-
-poseidon2_permute.launches = 0
-poseidon2_permute.launches_split = poseidon2_permute.launches_whole = 0
+    with _observed(state, "w12"):
+        return _launch("w12", kernel_library(), "p25_poseidon2_permute_w12",
+                       state, split)
 
 
 # ------------------------------------------------------------ lane-major form
@@ -346,24 +366,21 @@ def soa_kernel_library() -> build.Built:
 def poseidon2_permute_soa(planes: GL) -> GL:
     """Permute lane-major planes (12, ...): the plain version for CPU
     tensors, the CUDA kernel csrc/poseidon2_soa.cu for CUDA tensors."""
-    with _observed(planes):
+    with _observed(planes, "soa"):
         if planes.lo.device.type == "cpu" and planes.hi.device.type == "cpu":
             return poseidon2_permute_soa_plain(planes)
         check_kernel_input(planes, lane_axis=0)
-        return _launch(poseidon2_permute_soa, soa_kernel_library(),
+        return _launch("soa", soa_kernel_library(),
                        "p25_poseidon2_permute_soa", planes)
 
 
 def _poseidon2_permute_soa_variant(planes: GL, split: bool) -> GL:
     """The measurement hook _poseidon2_permute_variant for lane-major
-    planes (12, ...).  Counted on poseidon2_permute_soa."""
+    planes (12, ...).  Counted as poseidon2_permute_soa's calls are."""
     check_kernel_input(planes, lane_axis=0)
-    return _launch(poseidon2_permute_soa, soa_kernel_library(),
-                   "p25_poseidon2_permute_soa", planes, split)
-
-
-poseidon2_permute_soa.launches = 0
-poseidon2_permute_soa.launches_split = poseidon2_permute_soa.launches_whole = 0
+    with _observed(planes, "soa"):
+        return _launch("soa", soa_kernel_library(),
+                       "p25_poseidon2_permute_soa", planes, split)
 
 
 def load_kernels() -> None:
@@ -377,58 +394,42 @@ def load_kernels() -> None:
 
 # ------------------------------------------------------------ captured launches
 
-_COUNTERS = ("launches", "launches_split", "launches_whole")
-
-
-def _counts() -> dict:
-    return {(w, c): getattr(w, c)
-            for w in (poseidon2_permute, poseidon2_permute_soa)
-            for c in _COUNTERS}
-
 
 @dataclass
 class LaunchRecord:
-    """The wrapper calls of a block run by `recording_launches`: how much
-    each counter rose, and the number of states of each call."""
+    """The launches of a block run by `recording_launches`: (kernel,
+    states) of each, in order, and the counters they add up to."""
 
+    calls: list = field(default_factory=list)
     counts: dict = field(default_factory=dict)
-    states: list = field(default_factory=list)
 
 
 @contextlib.contextmanager
 def recording_launches():
-    """Record the block's wrapper calls without counting them: inside, the
-    observers are set aside and each call's number of states is kept; on
-    leaving, every counter goes back to its value before the block.  For a
-    block that captures a CUDA graph: the Python around a launch runs at
-    capture and not at replay, so the graph's owner passes the yielded
-    LaunchRecord to `replay_launches` once per replay, which counts the
-    launches where they run."""
-    before = _counts()
-    rec = LaunchRecord()
-    saved = _observers[:]
-
-    def keep(n):
-        rec.states.append(n)
-        return contextlib.nullcontext()
-
-    _observers[:] = [keep]
+    """Record the block's launches without counting or observing them.
+    For a block that captures a CUDA graph: the Python around a launch
+    runs at capture and not at replay, so the graph's owner passes the
+    yielded LaunchRecord to `replay_launches` once per replay, which
+    counts the launches where they run."""
+    global _record
+    saved, _record = _record, LaunchRecord()
+    rec = _record
     try:
         yield rec
     finally:
-        _observers[:] = saved
-        for key, value in _counts().items():
-            rec.counts[key] = value - before[key]
-            setattr(*key, before[key])
+        _record = saved
+        for kernel, n in rec.calls:
+            for name, d in zip(_COUNTERS[kernel], (n, 1)):
+                rec.counts[name] = rec.counts.get(name, 0) + d
 
 
 def replay_launches(rec: LaunchRecord) -> None:
-    """Count one replay of a graph captured under `recording_launches`:
-    each counter rises as it did at capture, and every open observer is
-    entered once for each recorded call."""
-    for (w, c), d in rec.counts.items():
-        setattr(w, c, getattr(w, c) + d)
-    for n in rec.states:
-        for cb in list(_observers):
-            with cb(n):
-                pass
+    """Count one replay of a graph captured under `recording_launches`
+    where tracing is on (its counters at once), and enter every open
+    observer once for each recorded launch."""
+    if not _observers and not profiling.tracing():
+        return
+    profiling.add(rec.counts)
+    for _, n in rec.calls if _observers else ():
+        with _entered(n):
+            pass

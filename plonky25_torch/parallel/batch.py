@@ -36,6 +36,7 @@ import torch
 
 from ..air import Air
 from ..proof import FriConfig, P3Config, Proof, derive_config
+from ..utils import profiling
 from ..utils.graphs import ProgramSet, StaticProgram
 from ..utils.tree import tree_map, tree_signature
 from ..verifier import fused_default, get_verifier
@@ -107,8 +108,10 @@ class BatchVerifier:
         BatchVerifier.verify_witnesses).  The staged path or the five
         stage programs, as `plan(ws, fused)` says; the same values either
         way.  `on_stage(name)` is called after each stage is enqueued, as
-        in TorchVerifier.verify_witnesses."""
-        r = self._verify(ws, on_stage, fused)
+        in TorchVerifier.verify_witnesses.  The call is the span
+        `verify.call` (utils/profiling.py)."""
+        with profiling.span("verify.call"):
+            r = self._verify(ws, on_stage, fused)
         return (r["ok"], r["samples"]) if with_samples else r["ok"]
 
     def verify(self, proofs: List[Proof]) -> torch.Tensor:

@@ -136,6 +136,7 @@ from ..proof import (
 )
 from ..refimpl.field import Gl
 from ..utils.bits import log2_ceil, log2_strict, reverse_bits_len_u32
+from ..utils import profiling
 from ..utils.graphs import ProgramSet, StaticProgram
 from ..utils.tree import tree_map, tree_signature
 from ..verifier import _publics, fused_default
@@ -654,21 +655,25 @@ class TorchProver:
         the host arrays pulled for these B proofs to those of every proof
         to assemble (the meshed BatchProver's all-gather).  The stages run
         staged or as programs, as `plan(cols, fused)` says; the same
-        bytes either way."""
+        bytes either way.  The call is the span `prove.call`, the proofs'
+        assembly on the host `prove.assemble` (utils/profiling.py)."""
         mark = on_stage or (lambda name: None)
         if cols.shape[1:] != (self.width, 1 << self.log_n):
             raise ValueError(f"trace columns {cols.shape}: want (B, "
                              f"{self.width}, {1 << self.log_n})")
-        host = self._host_values(cols, mark, fused)
-        if not host["pow_ok"]:
-            raise AssertionError("PoW self-check failed")
-        if not host["low_degree_ok"]:
-            raise AssertionError("FRI input not low-degree")
-        if gather is not None:
-            host = gather(host)
-        proofs = [self._assemble(host, i) for i in range(len(host["wit"]))]
-        mark("queries")
-        return proofs
+        with profiling.span("prove.call"):
+            host = self._host_values(cols, mark, fused)
+            if not host["pow_ok"]:
+                raise AssertionError("PoW self-check failed")
+            if not host["low_degree_ok"]:
+                raise AssertionError("FRI input not low-degree")
+            if gather is not None:
+                host = gather(host)
+            with profiling.span("prove.assemble"):
+                proofs = [self._assemble(host, i)
+                          for i in range(len(host["wit"]))]
+            mark("queries")
+            return proofs
 
     def _host_values(self, cols: GL, mark, fused) -> Dict:
         """The host arrays of the proofs of cols, through the stage
@@ -984,36 +989,38 @@ def _gather_cols(m: GL, idx: torch.Tensor) -> GL:
 def _pull(values: Dict) -> Dict:
     """Copy GL / GL2 / tensor values (and lists of them) to the host in one
     transfer: GL -> uint64 array, GL2 -> (c0, c1) uint64 arrays, a tensor ->
-    a numpy array (a 0-d bool -> bool)."""
-    flat = []
+    a numpy array (a 0-d bool -> bool).  The span `prove.pull`."""
+    with profiling.span("prove.pull"):
+        flat = []
 
-    def collect(x):
-        if isinstance(x, list):
-            return [collect(v) for v in x]
-        if isinstance(x, GL2):
-            return GL2(collect(x.c0), collect(x.c1))
-        if isinstance(x, GL):
-            return GL(collect(x.lo), collect(x.hi))
-        flat.append(x.reshape(-1).to(torch.int64))
-        return (len(flat) - 1, tuple(x.shape), x.dtype)
+        def collect(x):
+            if isinstance(x, list):
+                return [collect(v) for v in x]
+            if isinstance(x, GL2):
+                return GL2(collect(x.c0), collect(x.c1))
+            if isinstance(x, GL):
+                return GL(collect(x.lo), collect(x.hi))
+            flat.append(x.reshape(-1).to(torch.int64))
+            return (len(flat) - 1, tuple(x.shape), x.dtype)
 
-    layout = {k: collect(v) for k, v in values.items()}
-    host = torch.cat(flat).cpu().numpy()
-    offsets = np.cumsum([0] + [t.numel() for t in flat])
+        layout = {k: collect(v) for k, v in values.items()}
+        host = torch.cat(flat).cpu().numpy()
+        offsets = np.cumsum([0] + [t.numel() for t in flat])
 
-    def rebuild(x):
-        if isinstance(x, list):
-            return [rebuild(v) for v in x]
-        if isinstance(x, GL2):
-            return (rebuild(x.c0), rebuild(x.c1))
-        if isinstance(x, GL):
-            lo, hi = rebuild(x.lo), rebuild(x.hi)
-            return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
-        i, shape, dtype = x
-        a = host[offsets[i]:offsets[i + 1]].reshape(shape)
-        return bool(a) if dtype == torch.bool and not shape else a
+        def rebuild(x):
+            if isinstance(x, list):
+                return [rebuild(v) for v in x]
+            if isinstance(x, GL2):
+                return (rebuild(x.c0), rebuild(x.c1))
+            if isinstance(x, GL):
+                lo, hi = rebuild(x.lo), rebuild(x.hi)
+                return ((hi.astype(np.uint64) << np.uint64(32))
+                        | lo.astype(np.uint64))
+            i, shape, dtype = x
+            a = host[offsets[i]:offsets[i + 1]].reshape(shape)
+            return bool(a) if dtype == torch.bool and not shape else a
 
-    return {k: rebuild(v) for k, v in layout.items()}
+        return {k: rebuild(v) for k, v in layout.items()}
 
 
 def trace_columns(traces, device) -> GL:

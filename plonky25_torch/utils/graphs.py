@@ -37,11 +37,13 @@ A failed capture or replay raises; nothing runs the function eagerly in
 its place.  The Poseidon2 wrappers count launches in Python, which runs at
 capture and not at replay: the program records what they counted at
 capture (ops/poseidon2.py::recording_launches) and counts it again at
-every replay.  A tensor that a module cache first makes during the capture
-would live in the graph's memory pool, which replays overwrite; the
-program checks that the caches did not grow during the capture: the
-module caches, and the tables of the program's owner (`tables`, the
-prover's per-instance tables).
+every replay where tracing is on.  Each run is the span `replay.<name>`
+(utils/profiling.py): the graph's replay and its count on the card, the
+function's call on the CPU; a capture is not in it.  A tensor that a
+module cache first makes during the capture would live in the graph's
+memory pool, which replays overwrite; the program checks that the caches
+did not grow during the capture: the module caches, and the tables of the
+program's owner (`tables`, the prover's per-instance tables).
 `stats` holds the warm-up, capture, instantiation and first-replay times
 and the bytes by which the capture grew the graph's memory pool.
 """
@@ -57,6 +59,7 @@ import torch
 
 from ..fields import extension
 from ..ops import ntt, poseidon2
+from . import profiling
 from .tree import tree_leaves, tree_map, tree_signature
 
 
@@ -80,8 +83,9 @@ class StaticProgram:
 
     def __init__(self, fn: Callable, template: tuple, device, pool=None,
                  shared: Dict[int, torch.Tensor] = None,
-                 tables: Callable = None):
+                 tables: Callable = None, name: str = "program"):
         self.fn = fn
+        self.span = "replay." + name
         self.device = torch.device(device)
         self.pool = pool
         self.tables = tables
@@ -109,17 +113,22 @@ class StaticProgram:
         """Run the function on the loaded buffers; returns its outputs,
         which on the card the next run overwrites."""
         if self.device.type != "cuda":
-            return self.fn(*self.inputs)
+            with profiling.span(self.span):
+                return self.fn(*self.inputs)
         if self._graph is None:
             self._capture()
             t0 = time.perf_counter()
-            self._graph.replay()
+            self._replay()
             torch.cuda.synchronize(self.device)
             self.stats["first_replay_ms"] = (time.perf_counter() - t0) * 1e3
         else:
-            self._graph.replay()
-        poseidon2.replay_launches(self._launches)
+            self._replay()
         return self._outputs
+
+    def _replay(self) -> None:
+        with profiling.span(self.span):
+            self._graph.replay()
+            poseidon2.replay_launches(self._launches)
 
     def __call__(self, *args):
         """Load `args`, run, and return clones of the outputs."""
@@ -200,7 +209,7 @@ class ProgramSet:
         made = prog is None
         if made:
             prog = StaticProgram(_weak(fn), args, self.device, self.pool,
-                                 self._shared, self._tables)
+                                 self._shared, self._tables, name)
             self.programs[name] = prog
             self._share(prog.inputs)
         prog.load(*args)

@@ -16,8 +16,8 @@ The port's own clocks, which what JAX times per stage becomes on the card:
     the verifier's `verify_witnesses` and the provers take as
     `on_stage(name)`; device ms per stage;
   * `StepClock`: the attestation entry points' `on_step(name)` hook: wall
-    ms, kernel launches by variant and peak device memory per step;
-  * `counted(fn)`: fn's result and both kernels' launches in it;
+    ms, each kernel's launches and states, and peak device memory per step;
+  * `counted(fn)`: fn's result and both kernels' launches and states in it;
   * `cuda_ms`, `once_ms`: device time from CUDA events (a mean over a run,
     or one call);
   * `profile_device_time`, `kernel_device_ms`, `device_summary`: device
@@ -27,15 +27,44 @@ A device figure comes from the device: StageClock, StepClock, counted and
 the CUDA-event and profiler helpers need a CUDA device and raise without
 one.  StageTimer, sync, measure_throughput and trace(device="cpu") also
 run on the CPU, where they time the host.
+
+The program's own spans and counters, on the profiler's clock:
+
+  * tracing is on while torch.profiler records (the autograd profiler's
+    flag) and inside a `recording()` block, and off at all other times;
+    nothing else turns it on.  Off, a span or a count costs one check of
+    that flag;
+  * `span(name)`: with tracing on, a `record_function("plonky25." + name)`
+    (a user annotation in the profiler's trace, beside the device rows)
+    and a `SpanRecord` in the table: its name, the span it is nested in,
+    its call (a span opened with no other open on its thread starts a new
+    call: the entry points' `verify.call` and `prove.call` spans, so every
+    span of one call carries that call's number) and its host start and
+    duration;
+  * `count(name, n)`: with tracing on, adds n to the table's counter
+    (`add(counts)`: several at once);
+  * `table()`: the table spans and counters go to: `recording()`'s own
+    for its block (added to an enclosing block's table when it ends);
+    outside every block, the process's, which gathers what the
+    profiler's sessions traced and nothing else.  At most MAX_SPANS spans
+    are kept, the newest; reading the table leaves it as it is.
+
+The Poseidon2 wrappers count `poseidon2.w12.*` and `poseidon2.soa.*`
+(`states`, and `launches` of the CUDA kernel) through
+ops/poseidon2.py::observe_states' path, replays of captured graphs
+included; `launch_counts`, `counted` and `StepClock` read them.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import json
+import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -44,16 +73,130 @@ from ..device import resolve_device
 from .tree import tree_leaves
 
 # the port's two kernels, by the names their rows carry (chip_smoke.py's
-# kernel line, device_summary)
+# kernel line, device_summary), and the tags of their counters
 AOS, SOA = "poseidon2_permute_w12", "poseidon2_permute_soa"
+KERNEL_TAGS = {AOS: "w12", SOA: "soa"}
+SPAN_PREFIX = "plonky25."
+MAX_SPANS = 1 << 16
 
 
-def kernel_wrappers() -> Dict[str, object]:
-    """{kernel name: its wrapper in ops/poseidon2.py}; each wrapper counts
-    its launches (`launches`, `launches_split`, `launches_whole`)."""
-    from ..ops import poseidon2 as p2
+# ------------------------------------------------------------ tracing
 
-    return {AOS: p2.poseidon2_permute, SOA: p2.poseidon2_permute_soa}
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+class SpanRecord(NamedTuple):
+    id: int
+    name: str           # as the profiler's annotation has it
+    parent: int         # the id of the span it is nested in; -1: none
+    call: int           # the call it belongs to
+    start_ns: int       # time.perf_counter_ns() at its start
+    dur_ns: int
+
+
+@dataclass
+class Table:
+    """What spans and counters recorded (module docstring)."""
+
+    spans: collections.deque = field(
+        default_factory=lambda: collections.deque(maxlen=MAX_SPANS))
+    counts: Dict[str, int] = field(default_factory=dict)
+
+    def add(self, other: "Table") -> None:
+        self.spans.extend(other.spans)
+        for k, n in other.counts.items():
+            self.counts[k] = self.counts.get(k, 0) + n
+
+
+_recording = 0              # open recording() blocks, on any thread
+_process_table = Table()
+_table = _process_table
+_table_lock = threading.Lock()
+_local = threading.local()  # .stack: the thread's open spans
+_span_ids = itertools.count()
+_call_ids = itertools.count(1)
+_OFF = contextlib.nullcontext()
+
+
+def tracing() -> bool:
+    """Whether spans and counts are recorded: torch.profiler records, or
+    a recording() block is open."""
+    return _recording > 0 or _profiler_enabled()
+
+
+def table() -> Table:
+    return _table
+
+
+@contextlib.contextmanager
+def recording():
+    """Tracing on for the block, into a fresh table (yielded), which is
+    added to an enclosing block's when the block ends."""
+    global _recording, _table
+    with _table_lock:
+        outer, _table = _table, Table()
+        _recording += 1
+    try:
+        yield _table
+    finally:
+        with _table_lock:
+            _recording -= 1
+            inner, _table = _table, outer
+            if outer is not _process_table:
+                outer.add(inner)
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "call", "start", "annotation")
+
+    def __init__(self, name: str):
+        self.name = SPAN_PREFIX + name
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        if stack:
+            self.parent, self.call = stack[-1].id, stack[-1].call
+        else:
+            self.parent, self.call = -1, next(_call_ids)
+        self.id = next(_span_ids)
+        stack.append(self)
+        self.annotation = torch.profiler.record_function(self.name)
+        self.annotation.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        dur = time.perf_counter_ns() - self.start
+        self.annotation.__exit__(*exc)
+        _local.stack.pop()
+        rec = SpanRecord(self.id, self.name, self.parent, self.call,
+                         self.start, dur)
+        with _table_lock:
+            _table.spans.append(rec)
+        return False
+
+
+def span(name: str):
+    """A context manager: the span `name` where tracing is on, nothing
+    where it is off."""
+    return _Span(name) if tracing() else _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the table's counter `name` where tracing is on."""
+    if tracing():
+        with _table_lock:
+            _table.counts[name] = _table.counts.get(name, 0) + n
+
+
+def add(counts: Dict[str, int]) -> None:
+    """count(name, n) for each item of `counts`, at once."""
+    if tracing():
+        with _table_lock:
+            for name, n in counts.items():
+                _table.counts[name] = _table.counts.get(name, 0) + n
 
 
 def sync(x) -> None:
@@ -202,29 +345,29 @@ class StageClock:
 
 
 def launch_counts() -> Dict[str, int]:
-    """{kernel: launches, kernel.split: of the split variant, kernel.whole:
-    of the other} as the wrappers hold them now."""
-    return {k + suf: getattr(w, "launches" + suf.replace(".", "_"))
-            for k, w in kernel_wrappers().items()
-            for suf in ("", ".split", ".whole")}
+    """{kernel: launches, kernel.states: states permuted} as the table
+    holds them now."""
+    counts = _table.counts
+    return {k + suf: counts.get(f"poseidon2.{tag}.{what}", 0)
+            for k, tag in KERNEL_TAGS.items()
+            for suf, what in (("", "launches"), (".states", "states"))}
 
 
 def counted(fn):
-    """Run fn() with both kernels' launch counts set to 0 just before it;
-    return (fn's result, launch_counts() read just after), the device
-    synchronised on both sides."""
+    """Run fn() inside a recording() block; return (fn's result,
+    launch_counts() of the block), the device synchronised on both
+    sides."""
     torch.cuda.synchronize()
-    for w in kernel_wrappers().values():
-        w.launches = w.launches_split = w.launches_whole = 0
-    out = fn()
-    torch.cuda.synchronize()
-    return out, launch_counts()
+    with recording():
+        out = fn()
+        torch.cuda.synchronize()
+        return out, launch_counts()
 
 
 class StepClock:
     """The attestation entry points' on_step hook: wall ms (the device
-    synchronised at each step's end), kernel launches, by variant, and
-    peak device memory of each step since the previous one (the peak
+    synchronised at each step's end), each kernel's launches and states,
+    and peak device memory of each step since the previous one (the peak
     statistics reset at every step)."""
 
     def __init__(self):
@@ -232,8 +375,9 @@ class StepClock:
         self.start()
 
     def start(self):
-        """Restart the clock, the counts (call it where the counts were
-        set to 0: inside `counted`) and the peak; returns the hook."""
+        """Restart the clock, the counts (call it inside the recording()
+        block that counts: inside `counted`) and the peak; returns the
+        hook."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         self.t, self.last = time.perf_counter(), launch_counts()

@@ -574,7 +574,8 @@ class TorchVerifier:
         with self._program_lock:
             if self._program is None:
                 self._program = StaticProgram(self._verify_all_fn,
-                                              (w, publics), self.device)
+                                              (w, publics), self.device,
+                                              name="verify_all")
         return self._program(w, publics)
 
     def verify_witness_fused(self, w: Dict) -> VerifyResult:

@@ -24,7 +24,6 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from plonky25_torch.ops import build  # noqa: E402
-from plonky25_torch.ops import poseidon2 as p2  # noqa: E402
 from plonky25_torch.proof import FriConfig, derive_config, load_proof  # noqa: E402
 
 
@@ -41,8 +40,6 @@ def main(argv=None):
     report = {"card": cs.nvidia_smi("name,power.limit"), "phase_seconds": {}}
     print(report["card"])
     build.build_many(["poseidon2", "poseidon2_soa"])
-    split_max = {cs.AOS: p2.kernel_library().split_max,
-                 cs.SOA: p2.soa_kernel_library().split_max}
     proof = load_proof(os.path.join(cs.FIXTURES, "proof_fibonacci_refimpl.json"))
     fc = FriConfig(1, 100, 16)
     att = cs.attestation_inputs(proof, fc)
@@ -64,9 +61,9 @@ def main(argv=None):
 
     if args.phases in ("all", "depth1"):
         cs.attestation_phases(att, proof, fc, derive_config(proof, fc),
-                              split_max, {}, {}, report, lap)
+                              {}, {}, report, lap)
     if args.phases in ("all", "composed"):
-        cs.composed_phases(att, proof, fc, split_max, {}, {}, report, lap)
+        cs.composed_phases(att, proof, fc, {}, {}, report, lap)
     report["seconds"] = time.perf_counter() - t_start
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

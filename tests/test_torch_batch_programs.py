@@ -31,11 +31,11 @@ import torch
 
 from plonky25_torch.fields import gl
 from plonky25_torch.models import FibonacciAir, RlcAir
-from plonky25_torch.ops import poseidon2
 from plonky25_torch.parallel import batch
 from plonky25_torch.parallel.batch import BatchVerifier, stack_witnesses
 from plonky25_torch.proof import FriConfig, derive_config, load_proof
 from plonky25_torch.refimpl.prover import prove as ref_prove
+from plonky25_torch.utils import profiling
 from plonky25_torch.utils.tree import tree_leaves
 from plonky25_torch.witness import pack_witness
 
@@ -233,14 +233,14 @@ def test_programs_replay_on_the_card():
     _equal(bv._verify(ws), staged)
     assert bv.plan(ws) == "capture"
     _equal(bv._verify(ws), staged)
-    w = poseidon2.poseidon2_permute
+    aos = profiling.AOS
     counts = []
     for fused in (True, False):
-        torch.cuda.synchronize()
-        w.launches = 0
-        assert bv.verify_witnesses(ws, fused=fused).tolist() == [False] * 4
-        counts.append(w.launches)
-    assert counts[0] == counts[1] > 0
+        ok, got = profiling.counted(
+            lambda: bv.verify_witnesses(ws, fused=fused).tolist())
+        assert ok == [False] * 4
+        counts.append((got[aos], got[aos + ".states"]))
+    assert counts[0] == counts[1] and counts[0][0] > 0
     assert all(p.stats["capture_ms"] > 0 for p in bv.programs().values())
 
 

@@ -33,7 +33,7 @@ from plonky25_torch.ops import poseidon2
 from plonky25_torch.proof import (FriConfig, derive_config, load_proof,
                                   proof_to_json)
 from plonky25_torch.prover import prove
-from plonky25_torch.utils import graphs
+from plonky25_torch.utils import graphs, profiling
 from plonky25_torch.utils.tree import tree_map
 from plonky25_torch.verifier import (TorchVerifier, _publics, fused_default,
                                      get_verifier)
@@ -304,19 +304,22 @@ def test_graph_replay_matches_staged_on_the_card():
 def test_launches_per_replay_on_the_card():
     """Each replay counts the state-major launches the capture saw: the
     transcript's duplexes, the fused Merkle walk, the fold's hash and
-    walk (32 for the fixture proof), none of them lane-major."""
+    walk (32 for the fixture proof, 5,817 states: chip_smoke.py's
+    verify_path_shapes(v, 1)), as the staged path does, none of them
+    lane-major."""
     _card()
     proof = load_proof(os.path.join(FIXTURES, "proof_fibonacci_refimpl.json"))
     v = TorchVerifier(FibonacciAir(), derive_config(proof, FC), "cuda")
     v.verify(proof, fused=True)                    # warm-up and capture
-    w = poseidon2.poseidon2_permute
+    aos, soa = profiling.AOS, profiling.SOA
+    ok, staged = profiling.counted(
+        lambda: bool(v.verify(proof, fused=False).ok))
+    assert ok and (staged[aos], staged[aos + ".states"]) == (32, 5817)
     for _ in range(2):
-        torch.cuda.synchronize()
-        w.launches = w.launches_split = w.launches_whole = 0
-        poseidon2.poseidon2_permute_soa.launches = 0
-        assert bool(v.verify(proof, fused=True).ok)
-        assert w.launches == 32 == w.launches_split + w.launches_whole
-        assert poseidon2.poseidon2_permute_soa.launches == 0
+        ok, got = profiling.counted(
+            lambda: bool(v.verify(proof, fused=True).ok))
+        assert ok and got == staged
+        assert got[soa] == got[soa + ".states"] == 0
 
 
 @pytest.mark.cuda

@@ -29,6 +29,7 @@ import plonky25_torch.attest_program as ap
 from plonky25_torch.fields import gl
 from plonky25_torch.fields.goldilocks import GL
 from plonky25_torch.ops import poseidon2
+from plonky25_torch.utils import profiling
 
 P = 0xFFFFFFFF00000001
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -161,11 +162,10 @@ def test_chunk_programs_replay_on_the_card():
     eager = ap._chain(GL(start.lo.clone(), start.hi.clone()), stream,
                       record=True)
     assert (ap._chain_digests(stream) == gl.to_u64_np(eager[0])).all()
-    w = poseidon2.poseidon2_permute
-    torch.cuda.synchronize()
-    w.launches = 0
-    ap._chain_digests(stream)
-    assert w.launches == 1 + 2 * ap.GAMMA_CHUNK
+    _, got = profiling.counted(lambda: ap._chain_digests(stream))
+    launches = 1 + 2 * ap.GAMMA_CHUNK
+    assert (got[profiling.AOS], got[profiling.AOS + ".states"]) == (
+        launches, launches * ap.GAMMA_LANES)
     prog = ap._chain_states_fn(ap.GAMMA_LANES, "cuda")
     state = start
     for off in (0, ap.GAMMA_CHUNK):

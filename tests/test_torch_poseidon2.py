@@ -9,6 +9,7 @@ marked `cuda` and skips without a GPU.  The JAX package is imported by a
 fixture, so that on a GPU machine without JAX the `cuda` case still runs:
     python -m pytest --noconftest -m cuda tests/test_torch_poseidon2.py"""
 
+import ctypes
 import types
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 from plonky25_torch.constants import GOLDILOCKS_P as P
 from plonky25_torch.fields import gl as tgl
 from plonky25_torch.ops import poseidon2 as tp2
+from plonky25_torch.utils import profiling
 
 EDGE = [0, 1, P - 1, 1 << 32, 0xFFFFFFFF, (0xFFFFFFFF << 32) % P]
 
@@ -75,10 +77,12 @@ def test_plain_keeps_leading_batch_axes():
 
 
 def test_wrapper_runs_plain_on_cpu_tensors_without_counting():
+    """The plain version counts its states and no launch."""
     s = tgl.from_u64(_states(3, 3), "cpu")
-    before = tp2.poseidon2_permute.launches
-    out = tp2.poseidon2_permute(s)
-    assert tp2.poseidon2_permute.launches == before
+    with profiling.recording():
+        out = tp2.poseidon2_permute(s)
+        got = profiling.launch_counts()
+    assert (got[profiling.AOS], got[profiling.AOS + ".states"]) == (0, 3)
     assert _rows(tgl.to_u64(out)) == \
         _rows(tgl.to_u64(tp2.poseidon2_permute_plain(s)))
 
@@ -127,24 +131,40 @@ def _gpu_sizes(split_max):
     return (1, 255, 257, split_max, split_max + 1, 100_003)
 
 
+def _ran_split(built, entry, s):
+    """The variant the C launcher `entry` of `built` reports it ran on the
+    CUDA states `s` (True: three threads per state)."""
+    out_lo, out_hi = torch.empty_like(s.lo), torch.empty_like(s.hi)
+    ran = ctypes.c_int(-1)
+    err = getattr(built.lib, entry)(
+        s.lo.data_ptr(), s.hi.data_ptr(), out_lo.data_ptr(),
+        out_hi.data_ptr(), s.lo.numel() // 12,
+        torch.cuda.current_stream().cuda_stream, ctypes.byref(ran))
+    assert err == 0
+    return bool(ran.value)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_gpu():
     """Both variants (one thread and three threads per state) and the
-    launcher's choice, bit-equal to the plain version; the launch counted
-    on the variant the state count selects."""
+    launcher's choice, bit-equal to the plain version; the launcher runs
+    split up to its crossover; the launch counted with the states it
+    permuted."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     split_max = tp2.kernel_library().split_max
     w = tp2.poseidon2_permute
+    aos = profiling.AOS
     for n in _gpu_sizes(split_max):
         s = tgl.from_u64(_states(n, n), "cuda")
-        before = (w.launches, w.launches_split, w.launches_whole)
-        out = w(s)
+        with profiling.recording():
+            out = w(s)
+            got = profiling.launch_counts()
         want = tp2.poseidon2_permute_plain(s)
         torch.cuda.synchronize()
-        split = n <= split_max
-        assert (w.launches, w.launches_split, w.launches_whole) == (
-            before[0] + 1, before[1] + split, before[2] + (not split))
+        assert (got[aos], got[aos + ".states"]) == (1, n)
+        assert _ran_split(tp2.kernel_library(), "p25_poseidon2_permute_w12",
+                          s) == (n <= split_max)
         for got in (out, tp2._poseidon2_permute_variant(s, False),
                     tp2._poseidon2_permute_variant(s, True)):
             assert torch.equal(got.lo, want.lo) and torch.equal(got.hi, want.hi)
@@ -217,10 +237,12 @@ def test_soa_helpers_match_jax_twins(soa_ref, helper):
 
 
 def test_soa_wrapper_runs_plain_on_cpu_tensors_without_counting():
+    """The plain version counts its states and no launch."""
     s = tgl.from_u64(_states(3, 8).T.copy(), "cpu")
-    before = tp2.poseidon2_permute_soa.launches
-    out = tp2.poseidon2_permute_soa(s)
-    assert tp2.poseidon2_permute_soa.launches == before
+    with profiling.recording():
+        out = tp2.poseidon2_permute_soa(s)
+        got = profiling.launch_counts()
+    assert (got[profiling.SOA], got[profiling.SOA + ".states"]) == (0, 3)
     assert tgl.to_u64(out).tolist() == \
         tgl.to_u64(tp2.poseidon2_permute_soa_plain(s)).tolist()
 
@@ -261,24 +283,27 @@ def test_constants_header_matches_constants():
 @pytest.mark.cuda
 def test_soa_kernel_matches_plain_and_state_major_kernel_on_gpu():
     """Both lane-major variants and the launcher's choice, bit-equal to the
-    plain version and to the state-major kernel, transposed."""
+    plain version and to the state-major kernel, transposed; the launcher
+    runs split up to its crossover."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     split_max = tp2.soa_kernel_library().split_max
     w = tp2.poseidon2_permute_soa
+    soa = profiling.SOA
     for rows in [_states(n, n) for n in _gpu_sizes(split_max)] + [
             _edge_states()]:
         n = len(rows)
         s = tgl.from_u64(rows.T.copy(), "cuda")
-        before = (w.launches, w.launches_split, w.launches_whole)
-        out = w(s)
+        with profiling.recording():
+            out = w(s)
+            got = profiling.launch_counts()
         want = tp2.poseidon2_permute_soa_plain(s)
         aos = tp2.poseidon2_permute(tgl.GL(s.lo.T.contiguous(),
                                            s.hi.T.contiguous()))
         torch.cuda.synchronize()
-        split = n <= split_max
-        assert (w.launches, w.launches_split, w.launches_whole) == (
-            before[0] + 1, before[1] + split, before[2] + (not split))
+        assert (got[soa], got[soa + ".states"]) == (1, n)
+        assert _ran_split(tp2.soa_kernel_library(),
+                          "p25_poseidon2_permute_soa", s) == (n <= split_max)
         for got in (out, tp2._poseidon2_permute_soa_variant(s, False),
                     tp2._poseidon2_permute_soa_variant(s, True)):
             assert torch.equal(got.lo, want.lo) and torch.equal(got.hi, want.hi)

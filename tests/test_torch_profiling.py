@@ -131,34 +131,40 @@ def _stub_cuda(monkeypatch, peaks):
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated",
                         lambda *a: peaks.pop(0))
-    for w in profiling.kernel_wrappers().values():
-        for k in ("launches", "launches_split", "launches_whole"):
-            monkeypatch.setattr(w, k, getattr(w, k))
+
+
+def _launch(tag, n):
+    """One launch of the kernel `tag` on n states, as the wrappers count
+    it."""
+    profiling.count(f"poseidon2.{tag}.launches")
+    profiling.count(f"poseidon2.{tag}.states", n)
 
 
 def test_counted_and_step_clock_bookkeeping(monkeypatch):
     _stub_cuda(monkeypatch, [1e9, 3e9])
     aos, soa = profiling.AOS, profiling.SOA
-    p2.poseidon2_permute.launches = 99
 
     def run():
-        p2.poseidon2_permute.launches += 3
-        p2.poseidon2_permute.launches_split += 3
+        for _ in range(3):
+            _launch("w12", 10)
         clock = profiling.StepClock()
-        p2.poseidon2_permute_soa.launches += 2
-        p2.poseidon2_permute_soa.launches_whole += 2
+        for _ in range(2):
+            _launch("soa", 7)
         clock("one")
-        p2.poseidon2_permute.launches += 1
-        p2.poseidon2_permute.launches_whole += 1
+        _launch("w12", 5)
+        # the plain version on the CPU: states, no launch
+        p2.poseidon2_permute(gl.zeros((4, 12), "cpu"))
         clock("two")
         return clock
 
-    clock, got = profiling.counted(run)
-    assert got == {aos: 4, aos + ".split": 3, aos + ".whole": 1,
-                   soa: 2, soa + ".split": 0, soa + ".whole": 2}
+    with profiling.recording():
+        _launch("w12", 99)          # before counted: not its count
+        clock, got = profiling.counted(run)
+    assert got == {aos: 4, aos + ".states": 39, soa: 2, soa + ".states": 14}
     assert clock.steps["one"]["launches"][soa] == 2
     assert clock.steps["one"]["launches"][aos] == 0
-    assert clock.steps["two"]["launches"][aos + ".whole"] == 1
+    assert clock.steps["two"]["launches"][aos] == 1
+    assert clock.steps["two"]["launches"][aos + ".states"] == 9
     assert clock.peak_gb() == pytest.approx(3.0)
     assert "one" in clock.text() and all(
         v["ms"] >= 0 for v in clock.steps.values())

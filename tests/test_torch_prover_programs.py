@@ -36,11 +36,10 @@ from plonky25_torch.models import FibonacciAir, MultisetAir, RlcAir
 from plonky25_torch.models.fibonacci import fibonacci_trace
 from plonky25_torch.models.multiset_air import pad_pairs
 from plonky25_torch.models.verifier_air import VerifierAir
-from plonky25_torch.ops import poseidon2
 from plonky25_torch.proof import FriConfig, load_proof, proof_to_json
 from plonky25_torch.prover import BatchProver, TorchProver
 from plonky25_torch.prover.prove import trace_columns
-from plonky25_torch.utils import graphs
+from plonky25_torch.utils import graphs, profiling
 from plonky25_tpu.models.multiset_air import MultisetAir as JMultisetAir
 from plonky25_tpu.models.rlc_air import RlcAir as JRlcAir
 from plonky25_tpu.proof import FriConfig as JFriConfig
@@ -313,25 +312,22 @@ def _card_prover(b=1):
     return fixture, p, cols
 
 
-def _launches():
-    return (poseidon2.poseidon2_permute.launches,
-            poseidon2.poseidon2_permute_soa.launches)
-
-
 @pytest.mark.cuda
 def test_replays_launch_what_staged_proofs_launch():
     """The fixture at B=2: captured and replayed proofs are its bytes, and
     a replay counts the staged proof's launches of each kernel."""
     fixture, p, cols = _card_prover(2)
-    counts = {}
+    counts, states = {}, {}
     for how in ("staged", "capture", "replay"):
         assert p.plan(cols, fused=how != "staged") == how
-        torch.cuda.synchronize()
-        before = _launches()
-        proofs = p.prove_columns(cols, fused=how != "staged")
-        counts[how] = tuple(a - b for a, b in zip(_launches(), before))
+        proofs, got = profiling.counted(
+            lambda: p.prove_columns(cols, fused=how != "staged"))
+        counts[how] = (got[profiling.AOS], got[profiling.SOA])
+        states[how] = (got[profiling.AOS + ".states"],
+                       got[profiling.SOA + ".states"])
         assert [_text(x) for x in proofs] == [fixture] * 2
     assert counts["replay"] == counts["staged"] and counts["staged"][1] > 0
+    assert states["replay"] == states["staged"]
     # at the capture each program runs twice (its eager warm-up, then its
     # first replay), but the transcript's duplexes run once, between the
     # programs, and so does the grind's second window (the fixture's
