@@ -5,10 +5,28 @@
 Phases, one line each; any failure exits non-zero:
   [card]        the card's name and power limit (nvidia-smi);
   [build]       both kernels, csrc/poseidon2.cu (state-major) and
-                csrc/poseidon2_soa.cu (lane-major), built for sm_90a from
-                this checkout's sources, one nvcc each, started together;
+                csrc/poseidon2_soa.cu (lane-major), and the field kernels'
+                csrc/goldilocks.cu, built for sm_90a from this checkout's
+                sources, one nvcc each, started together;
                 registers, spills and SASS instruction mix of each
                 __global__ (one thread per state, and split: three);
+  [field]       the field kernels, csrc/goldilocks.cu (Goldilocks and
+                GF(p^2) add, sub, mul, and GF(p^2) times GF(p)), each
+                alone at FIELD_N elements: bit-equal to its plain version
+                (the limb chain, gl.*_limbs / gl2.*_limbs) on the card, ms
+                per launch (CUDA events) against that chain's ms and the
+                bytes bound (limbs read and written once, at 3.35 TB/s),
+                and ms per launch of one element; then the main paths at
+                the benchmark's shapes (a Keccak 2^14 proof, its quotient
+                and fold; BatchVerifier on 256 of its proofs and on 2,048
+                fib fixture proofs), each staged, captured and replayed
+                under observe_launches: every distinct layout (op, operand
+                shapes and strides) bit-equal to its limb chain on the same
+                card tensors, field.*.launches and .elements counted equal
+                to the launches observed in the staged runs, a replay's
+                launches the warm staged run's (the first call also builds
+                the cached tables) (`--phases field` runs [card], [build]
+                and this phase alone);
   [kernel]      the state-major kernel against its plain PyTorch version,
                 bit for bit, each variant and the launcher's choice: N = 1,
                 255, 257, 1,048,579 and both sides of the crossover,
@@ -251,8 +269,9 @@ Phases, one line each; any failure exits non-zero:
 then the kernel table line {"kernels": [...]} (launches and times of
 MAIN_PATH, compose_golden, with every path's beside them) and the last
 line {"ok": true, "device": {...}}.  Every path is driven inside
-`counted` (a fresh table of launch and state counts) and the counts are held
-to the numbers the path's shape gives, states too: a single
+`counted` (a fresh table of launch and state counts, the field kernels'
+launches beside them) and the Poseidon2 counts are held to the numbers the
+path's shape gives, states too: a single
 verification's first call through a verifier launches its kernels twice
 (the eager warm-up before the graph's capture, then the replay;
 verify_runs), later calls once per replay; so does a chunk program's first
@@ -298,7 +317,7 @@ import plonky25_torch.attest_program as attp  # noqa: E402
 import plonky25_torch.verifier as verifier_mod  # noqa: E402
 from plonky25_torch.challenger import SymbolicChallenger  # noqa: E402
 from plonky25_torch.constants import EXT_DEGREE, RATE  # noqa: E402
-from plonky25_torch.fields import gl  # noqa: E402
+from plonky25_torch.fields import gl, gl2  # noqa: E402
 from plonky25_torch.models import (  # noqa: E402
     FibonacciAir,
     KeccakAir,
@@ -311,6 +330,7 @@ from plonky25_torch.models.verifier_air import VerifierAir  # noqa: E402
 from plonky25_torch.ops import keccak as keccak_ops  # noqa: E402
 from plonky25_torch.ops import ntt as ntt_ops  # noqa: E402
 from plonky25_torch.ops import build  # noqa: E402
+from plonky25_torch.ops import goldilocks as field_kernels  # noqa: E402
 from plonky25_torch.ops import poseidon2 as p2  # noqa: E402
 from plonky25_torch.parallel import (  # noqa: E402
     MultiHostBatchVerifier,
@@ -351,16 +371,19 @@ from plonky25_torch.utils.profiling import (  # noqa: E402
     StageClock,
     StageTimer,
     StepClock,
-    counted,
     cuda_ms,
     device_summary,
+    field_launches,
     kernel_device_ms,
+    launch_counts,
     measure_throughput,
     once_ms,
     profile_device_time,
+    recording,
     trace,
 )
 from plonky25_torch.utils.roofline import (  # noqa: E402
+    HBM_BYTES_PER_S,
     P2_BYTES_PER_STATE,
     P2_OPS,
     OpCount,
@@ -406,7 +429,23 @@ ARTIFACTS = os.path.join(ROOT, "artifacts")
 # the first kernels' build on the card): printed beside this build's counts.
 FIRST_SASS_ALU = {AOS: 26_934, SOA: 27_171}
 SMALL_N = (1, 2048, 32768)            # latency-bound launches
+FIELD_N = 1 << 24                     # [field]: elements a launch
+# [field]: op -> (the dispatching function, its plain version, operand kinds)
+FIELD_OPS = {
+    "gl_add": (gl.add, gl.add_limbs, "gl", "gl"),
+    "gl_sub": (gl.sub, gl.sub_limbs, "gl", "gl"),
+    "gl_mul": (gl.mul, gl.mul_limbs, "gl", "gl"),
+    "gl2_add": (gl2.add, gl2.add_limbs, "gl2", "gl2"),
+    "gl2_sub": (gl2.sub, gl2.sub_limbs, "gl2", "gl2"),
+    "gl2_mul": (gl2.mul, gl2.mul_limbs, "gl2", "gl2"),
+    "gl2_mul_base": (gl2.mul_base, gl2.mul_base_limbs, "gl2", "gl"),
+}
 CROSSOVER_N = (8192, 16384, 24576, 32768, 40960, 49152, 65536)
+# [field] main paths: the Keccak proof's height and the batches, as the
+# benchmark's cells have them (p3bench/configs, p3bench/traffic)
+FIELD_LOG_N = 14
+FIELD_B = {"keccak": 256, "fib": 2048}
+FIELD = "field"         # the field kernels' launches in counted()'s dict
 
 
 class SmokeError(RuntimeError):
@@ -460,16 +499,23 @@ def sass_mixes(path):
     return mixes
 
 
-def ptxas_report(log):
-    """{variant: (registers, bytes spilled)} from nvcc's -Xptxas -v log."""
+def ptxas_functions(log):
+    """{__global__ (its mangled name): (registers, bytes spilled)} from
+    nvcc's -Xptxas -v log."""
     out = {}
     for part in log.split("Compiling entry function")[1:]:
         regs = re.search(r"Used (\d+) registers", part)
         spills = re.search(r"(\d+) bytes spill stores", part)
-        out[variant_of(part.split("\n", 1)[0])] = (
+        line = part.split("\n", 1)[0]
+        out[line.split("'")[1] if "'" in line else line.strip()] = (
             int(regs.group(1)) if regs else None,
             int(spills.group(1)) if spills else None)
     return out
+
+
+def ptxas_report(log):
+    """{variant: (registers, bytes spilled)} from nvcc's -Xptxas -v log."""
+    return {variant_of(name): v for name, v in ptxas_functions(log).items()}
 
 
 # ------------------------------------------------------------ kernels
@@ -644,6 +690,20 @@ def mmcs_path_shapes(rows, logs, q):
     fold-in."""
     chunks = sum(-(-r.shape[-1] // RATE) for r in rows)
     return {AOS: {q: chunks + logs[0] + len(logs) - 1}, SOA: {}}
+
+
+def counted(fn):
+    """Run fn() inside a recording() block; return (fn's result, the
+    block's launch_counts(), with the field kernels' launches beside them
+    under FIELD: {op: launches}), the device synchronised on both
+    sides."""
+    torch.cuda.synchronize()
+    with recording():
+        out = fn()
+        torch.cuda.synchronize()
+        got = launch_counts()
+        got[FIELD] = field_launches()
+    return out, got
 
 
 def check_launches(path, got, shapes):
@@ -2513,9 +2573,226 @@ def tooling_phase(proof, fc, cfg, verify_batch, want, batch_qps, at_2_21,
         "mfu": mfu}
 
 
+def field_operand(kind, n, seed):
+    """n seeded canonical values on the card: a GL, or a GL2 ("gl2")."""
+    rng = np.random.default_rng(seed)
+    parts = [gl.from_u64(rng.integers(0, P, size=n, dtype=np.uint64), DEVICE)
+             for _ in range(2 if kind == "gl2" else 1)]
+    return gl2.GL2(*parts) if kind == "gl2" else parts[0]
+
+
+def field_limbs(v):
+    return list(v.c0) + list(v.c1) if isinstance(v, gl2.GL2) else list(v)
+
+
+def field_phase(report):
+    """[field]: each field kernel alone at FIELD_N elements against its
+    plain version and its bytes bound, and at one element (its latency)."""
+    rows = {}
+    for op, (fn, plain, ka, kb) in FIELD_OPS.items():
+        x, y = field_operand(ka, FIELD_N, 1), field_operand(kb, FIELD_N, 2)
+        got, want = fn(x, y), plain(x, y)
+        check(all(torch.equal(g, w) for g, w in
+                  zip(field_limbs(got), field_limbs(want))),
+              f"[field] {op} differs from its limb chain at {FIELD_N}")
+        del got, want
+        n_in, n_out = field_kernels.OPS[op]
+        nbytes = 8 * (n_in + n_out) * FIELD_N
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = cuda_ms(lambda: fn(x, y), 20)
+        plain_ms = cuda_ms(lambda: plain(x, y), 3)
+        x1, y1 = field_operand(ka, 1, 3), field_operand(kb, 1, 4)
+        one_ms = cuda_ms(lambda: fn(x1, y1), 200)
+        rows[op] = {"n": FIELD_N, "ms": ms, "plain_ms": plain_ms,
+                    "bytes": nbytes, "bound_ms": bound_ms,
+                    "bound_share": bound_ms / ms, "ms_at_1": one_ms}
+        del x, y
+        torch.cuda.empty_cache()
+    print(f"[field] {FIELD_N} elements a launch, ms (bytes bound at 3.35 "
+          "TB/s, share; plain limb chain ms; ms at 1 element): "
+          + "; ".join(f"{op} {r['ms']:.4f} ({r['bound_ms']:.4f}, "
+                      f"{100 * r['bound_share']:.1f}%; plain "
+                      f"{r['plain_ms']:.3f}; {r['ms_at_1']:.4f})"
+                      for op, r in rows.items())
+          + "; each bit-equal to its limb chain on the card")
+    report["field"] = rows
+
+
+class FieldLaunches:
+    """observe_launches' callback on a main path.  Each distinct layout a
+    field kernel is launched on (the op, each operand's shape and
+    strides) is held, at its first launch outside a capture, bit-equal to
+    the op's limb chain on the same card tensors; launches and their
+    elements are counted per op outside captures (and the checks' own
+    apart), and the layouts launched inside captures kept."""
+
+    def __init__(self):
+        self.checked = {}           # layout -> axes left by the plan
+        self.captured = set()
+        self.launches, self.elements = Counter(), Counter()
+        self.extra, self.extra_elements = Counter(), Counter()
+        self.broadcast = 0          # layouts with a stride-0 operand
+        self._busy = False
+
+    def __call__(self, op, tensors):
+        if self._busy:              # the check's own launch
+            return
+        key = (op, tuple((tuple(t.shape), t.stride()) for t in tensors))
+        if torch.cuda.is_current_stream_capturing():
+            self.captured.add(key)
+            return
+        shape = tuple(torch.broadcast_shapes(*(t.shape for t in tensors)))
+        self.launches[op] += 1
+        self.elements[op] += math.prod(shape)
+        if key in self.checked:
+            return
+        self._busy = True
+        try:
+            got = field_kernels.launch(op, tensors)
+            ok = limb_chain_equal(op, tensors, shape, got)
+        finally:
+            self._busy = False
+        self.extra[op] += 1
+        self.extra_elements[op] += math.prod(shape)
+        check(ok, f"[field] {op} on operands (shape, strides) {key[1]} "
+              "differs from its limb chain")
+        self.checked[key] = len(field_kernels.plan(tensors)[1])
+        self.broadcast += any(0 in t.stride() for t in tensors
+                              if t.numel() > 1)
+
+    def counts(self):
+        """(launches, elements, the checks' launches, their elements) so
+        far, per op."""
+        return tuple(Counter(c) for c in (self.launches, self.elements,
+                                          self.extra, self.extra_elements))
+
+
+def limb_chain_equal(op, tensors, shape, got):
+    """Whether `got` (op's kernel outputs on `tensors`) is bit-equal to
+    the op's limb chain on the same tensors, run on slices of the leading
+    axis of at most FIELD_N elements."""
+    chain = field_kernels.limb_chain(op)
+    if not shape:
+        return all(torch.equal(g, w) for g, w in zip(got, chain(*tensors)))
+    full = [t.expand(shape) for t in tensors]
+    step = max(1, FIELD_N // max(1, math.prod(shape[1:])))
+    for i in range(0, shape[0], step):
+        want = chain(*(t[i:i + step] for t in full))
+        if not all(torch.equal(g[i:i + step], w) for g, w in zip(got, want)):
+            return False
+    return True
+
+
+def field_path(name, call, plan, obs):
+    """One main path run staged twice (the first call builds the cached
+    tables), capturing and replaying (call(fused) -> its result,
+    plan(fused) -> what the call will run) under the observer `obs` and
+    tracing: the four results equal; each staged run's field.*.launches
+    and .elements counters equal the launches observed (the checks' own
+    included); every layout launched in a capture also launched eagerly
+    (so it was checked); the replay's launches the warm staged run's.
+    Returns (the result, {run: {op: launches}})."""
+    launches, results = {}, {}
+    for how, fused in (("staged", False), ("staged_warm", False),
+                       ("capture", True), ("replay", True)):
+        got = plan(fused)
+        check(got == how.split("_")[0], f"[field] {name}: the call's plan "
+              f"was {got}, not {how}")
+        before = obs.counts()
+        torch.cuda.synchronize()
+        with recording() as t:
+            results[how] = call(fused)
+            torch.cuda.synchronize()
+        after = obs.counts()
+        seen = [after[i] - before[i] for i in range(4)]
+        counters = [{op: t.counts.get(field_kernels.COUNTERS[op][i], 0)
+                     for op in field_kernels.OPS} for i in (0, 1)]
+        launches[how] = {op: n - seen[2][op] for op, n in counters[0].items()
+                         if n - seen[2][op]}
+        if how.startswith("staged"):
+            for i, what in enumerate(("launches", "elements")):
+                want = {op: seen[i][op] + seen[i + 2][op]
+                        for op in field_kernels.OPS}
+                check(counters[i] == want, f"[field] {name} ({how}): "
+                      f"field.*.{what} counted {counters[i]}, observed {want}")
+        check(results[how] == results["staged"], f"[field] {name}: the "
+              f"{how} result differs from the staged one")
+    missed = obs.captured - set(obs.checked)
+    check(not missed, f"[field] {name}: {len(missed)} layouts launched only "
+          f"inside a capture, unchecked: {sorted(missed)[:3]}")
+    check(launches["replay"] == launches["staged_warm"]
+          and launches["replay"], f"[field] {name}: a replay launched "
+          f"{launches['replay']}, the warm staged run "
+          f"{launches['staged_warm']}")
+    return results["staged"], launches
+
+
+def field_paths(report):
+    """[field] on the main paths at the benchmark's shapes: a Keccak proof
+    of 2^FIELD_LOG_N rows (TorchProver, the quotient and the fold), a
+    batch of FIELD_B["keccak"] of its proof and one of FIELD_B["fib"]
+    fixture proofs (BatchVerifier), each run by field_path under one
+    FieldLaunches."""
+    fc = FriConfig(log_blowup=1, num_queries=100, proof_of_work_bits=16)
+    kair = KeccakAir()
+    rng = np.random.default_rng(0xF1E1D)
+    perms = (1 << FIELD_LOG_N) // 24
+    trace = keccak_trace_np(rng.integers(0, 1 << 64, size=(perms, 25),
+                                         dtype=np.uint64).tolist(),
+                            1 << FIELD_LOG_N)
+    cols = trace_columns([trace], DEVICE)
+    prover = TorchProver(kair, FIELD_LOG_N, fc, DEVICE,
+                         quotient_eval_chunks_for(kair, FIELD_LOG_N))
+    rows, obs = {}, FieldLaunches()
+    t0 = time.perf_counter()
+    with field_kernels.observe_launches(obs):
+        proof, rows["prove"] = field_path(
+            "prove", lambda fused: prover.prove_columns(cols,
+                                                        fused=fused)[0],
+            lambda fused: prover.plan(cols, fused), obs)
+        prover.release_programs()
+        del prover, cols
+        torch.cuda.empty_cache()
+        fib = load_proof(os.path.join(FIXTURES,
+                                      "proof_fibonacci_refimpl.json"))
+        for name, air, pr in (("verify_keccak", kair, proof),
+                              ("verify_fib", FibonacciAir(), fib)):
+            cfg = derive_config(pr, fc)
+            b = FIELD_B[name.split("_")[1]]
+            ws = stack_witnesses([pack_witness(pr, cfg, DEVICE)] * b)
+            bv = BatchVerifier(air, cfg, device=DEVICE)
+            ok, rows[name] = field_path(
+                name, lambda fused: bv.verify_witnesses(
+                    ws, fused=fused).tolist(),
+                lambda fused: bv.plan(ws, fused), obs)
+            check(ok == [True] * b, f"[field] {name}: a proof was rejected")
+            del bv, ws
+            torch.cuda.empty_cache()
+    ranks = Counter(obs.checked.values())
+    seconds = time.perf_counter() - t0
+    print(f"[field] main paths (keccak 2^{FIELD_LOG_N} prove, verify "
+          f"B={FIELD_B['keccak']}, fib verify B={FIELD_B['fib']}; staged, "
+          f"captured, replayed, {seconds:.1f} s): {len(obs.checked)} "
+          f"distinct layouts, by axes left after merging "
+          f"{dict(sorted(ranks.items()))}, {obs.broadcast} with a broadcast "
+          "operand, each bit-equal to its limb chain on the same card "
+          "tensors; field.*.launches counted = observed in the staged runs, "
+          "and a replay's = the warm staged run's (launches a call: cold "
+          "staged, replay): "
+          + "; ".join(f"{p} {sum(v['staged'].values())}, "
+                      f"{sum(v['replay'].values())}"
+                      for p, v in rows.items()))
+    report["field_paths"] = {
+        "launches": rows, "layouts": len(obs.checked),
+        "layouts_by_axes": dict(ranks), "broadcast_layouts": obs.broadcast,
+        "seconds": seconds}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="write the measurements here as JSON")
+    ap.add_argument("--phases", choices=("all", "field"), default="all",
+                    help="field: [card], [build] and [field] alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
@@ -2542,7 +2819,7 @@ def main(argv=None):
 
     # ---- build
     t0 = time.perf_counter()
-    libs = build.build_many(["poseidon2", "poseidon2_soa"])
+    libs = build.build_many(["poseidon2", "poseidon2_soa", "goldilocks"])
     build_s = time.perf_counter() - t0
     split_max = {AOS: p2.kernel_library().split_max,
                  SOA: p2.soa_kernel_library().split_max}
@@ -2577,7 +2854,24 @@ def main(argv=None):
                                    "registers_spills": regs,
                                    "split_max_states": split_max[kernel]}
 
+    field_regs = ptxas_functions(libs["goldilocks"].log)
+    print(f"[build] {os.path.relpath(libs['goldilocks'].path, ROOT)} for "
+          f"sm_90a (nvcc {libs['goldilocks'].seconds:.1f} s): "
+          f"{len(field_regs)} __global__s, registers "
+          f"{min(r for r, _ in field_regs.values())}-"
+          f"{max(r for r, _ in field_regs.values())}, spills "
+          f"{sum(sp for _, sp in field_regs.values())} bytes")
+    check(all(sp == 0 for _, sp in field_regs.values()),
+          "goldilocks: ptxas spilled registers")
+    report["build"]["goldilocks"] = {
+        "nvcc_seconds": libs["goldilocks"].seconds,
+        "registers_spills": field_regs}
     lap("build")
+    field_phase(report)
+    field_paths(report)
+    lap("field")
+    if args.phases == "field":
+        return finish(report, args, t_start, [])
     # ---- fixtures and the shapes every path launches
     with open(os.path.join(FIXTURES, "proof_fibonacci_expected.json")) as f:
         expected = json.load(f)
@@ -3731,11 +4025,24 @@ def main(argv=None):
                 for var, m in report["build"][kernel]["sass"].items()},
         })
     report["kernels"] = kernel_rows
+    by_path = {p: sum(v[FIELD].values()) for p, v in path_launches.items()}
+    for p in (MAIN_PATH, "verify_batch", "verify_batch_keccak"):
+        check(by_path[p] > 0, f"{p}: no field kernel launched")
+    print("[field] launches by path (field.*.launches, as counted): "
+          + ", ".join(f"{p} {n}" for p, n in by_path.items()))
+    report["field_launches_by_path"] = {p: v[FIELD]
+                                        for p, v in path_launches.items()}
     lap("timing")
     tooling_phase(proof, fc, cfg, verify_batch, want_batch,
                   report["batch"]["queries_per_s"], same_n, sms, clk_hz,
                   report)
     lap("tooling")
+    return finish(report, args, t_start, kernel_rows)
+
+
+def finish(report, args, t_start, kernel_rows):
+    """Write the report (--report), print the kernel table line and the
+    last line; the script's exit code."""
     report["seconds"] = time.perf_counter() - t_start
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

@@ -10,8 +10,10 @@ them, one at a time (`prover.prove`) or in batches (`prover.BatchProver`);
 `parallel` also splits a proof's queries or a batch over the devices of
 a torch.distributed group (`ShardedVerifier`, `MultiHostBatchVerifier`),
 as `TorchProver(lde_mesh=)` and `BatchProver.prove(mesh=)` split proving.
-Field arithmetic is PyTorch on int64 limb tensors; every Poseidon2
-permutation on a CUDA tensor runs a hand-written kernel: csrc/poseidon2.cu
+Field elements are int64 limb tensors; on a CUDA tensor every Goldilocks
+and GF(p^2) add, sub and mul is one launch of csrc/goldilocks.cu (on the
+CPU, a chain of PyTorch limb ops), and every Poseidon2
+permutation runs a hand-written kernel: csrc/poseidon2.cu
 on state-major states (the verifier, the transcripts), csrc/poseidon2_soa.cu
 on lane-major ones (the prover's Merkle trees and PoW grind).  `attest`
 proves, in one 620-column VerifierAir STARK, that a proof verified, and

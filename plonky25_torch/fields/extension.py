@@ -3,6 +3,10 @@
 Mirrors plonky25_tpu/fields/extension.py and the reference's quadratic
 extension algebra (src/p3/extension.rs): W = 7, dth_root = p - 1, and the
 degree-2 mul/inverse formulas (extension.rs:304-321, 458-471).
+
+On CUDA tensors `add`, `sub`, `mul` and `mul_base` launch one kernel each
+(csrc/goldilocks.cu through ops/goldilocks.py: the product in registers);
+on the CPU they run the GL ops below.
 """
 
 from __future__ import annotations
@@ -12,8 +16,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..constants import (DTH_ROOT, GOLDILOCKS_P as P, TWO_ADIC_GENERATOR_32,
-                         TWO_ADICITY)
+from ..constants import (DTH_ROOT, EXT_W as W, GOLDILOCKS_P as P,
+                         TWO_ADIC_GENERATOR_32, TWO_ADICITY)
+from ..ops import goldilocks as kernels
 from ..utils.tree import tree_map
 from . import goldilocks as gl
 from .goldilocks import GL
@@ -57,12 +62,32 @@ def to_u64_pair(x: GL2):
     return gl.to_u64(x.c0), gl.to_u64(x.c1)
 
 
+def _launch(op: str, *limbs) -> GL2:
+    lo0, hi0, lo1, hi1 = kernels.launch(op, limbs)
+    return GL2(GL(lo0, hi0), GL(lo1, hi1))
+
+
 def add(x: GL2, y: GL2) -> GL2:
-    return GL2(gl.add(x.c0, y.c0), gl.add(x.c1, y.c1))
+    if x.c0.lo.is_cuda or y.c0.lo.is_cuda:
+        return _launch("gl2_add", *x.c0, *x.c1, *y.c0, *y.c1)
+    return add_limbs(x, y)
+
+
+def add_limbs(x: GL2, y: GL2) -> GL2:
+    """x + y as chains of limb ops (gl.add_limbs): `add` on the CPU, and
+    the plain version the kernel is held to."""
+    return GL2(gl.add_limbs(x.c0, y.c0), gl.add_limbs(x.c1, y.c1))
 
 
 def sub(x: GL2, y: GL2) -> GL2:
-    return GL2(gl.sub(x.c0, y.c0), gl.sub(x.c1, y.c1))
+    if x.c0.lo.is_cuda or y.c0.lo.is_cuda:
+        return _launch("gl2_sub", *x.c0, *x.c1, *y.c0, *y.c1)
+    return sub_limbs(x, y)
+
+
+def sub_limbs(x: GL2, y: GL2) -> GL2:
+    """x - y as chains of limb ops (add_limbs)."""
+    return GL2(gl.sub_limbs(x.c0, y.c0), gl.sub_limbs(x.c1, y.c1))
 
 
 def neg(x: GL2) -> GL2:
@@ -79,23 +104,51 @@ def sub_base(x: GL2, b: GL) -> GL2:
 
 
 def mul_base(x: GL2, b: GL) -> GL2:
-    return GL2(gl.mul(x.c0, b), gl.mul(x.c1, b))
+    if x.c0.lo.is_cuda or b.lo.is_cuda:
+        return _launch("gl2_mul_base", *x.c0, *x.c1, *b)
+    return mul_base_limbs(x, b)
+
+
+def mul_base_limbs(x: GL2, b: GL) -> GL2:
+    """x * b as chains of limb ops (add_limbs)."""
+    return GL2(gl.mul_limbs(x.c0, b), gl.mul_limbs(x.c1, b))
 
 
 def _mul_w(x: GL) -> GL:
-    """x * 7 via adds (cheaper than a field mul)."""
-    x2 = gl.add(x, x)
-    x4 = gl.add(x2, x2)
-    return gl.add(gl.add(x4, x2), x)
+    """x * 7: on the card one field mul by a 0-d constant, made on the
+    device once (cached, as Ops.const_base's), one launch where adds take
+    four; on the CPU _mul_w_limbs."""
+    if not x.lo.is_cuda:
+        return _mul_w_limbs(x)
+    key = ("W", str(x.lo.device))
+    w = _CONSTS.get(key)
+    if w is None:
+        w = _CONSTS[key] = gl.constant(W, x.lo.device)
+    return gl.mul(x, w)
+
+
+def _mul_w_limbs(x: GL) -> GL:
+    """x * 7 via limb adds (cheaper than a limb mul)."""
+    x2 = gl.add_limbs(x, x)
+    x4 = gl.add_limbs(x2, x2)
+    return gl.add_limbs(gl.add_limbs(x4, x2), x)
 
 
 def mul(x: GL2, y: GL2) -> GL2:
     """(a0 + a1 X)(b0 + b1 X) = (a0 b0 + 7 a1 b1) + (a0 b1 + a1 b0) X."""
-    a0b0 = gl.mul(x.c0, y.c0)
-    a1b1 = gl.mul(x.c1, y.c1)
-    a0b1 = gl.mul(x.c0, y.c1)
-    a1b0 = gl.mul(x.c1, y.c0)
-    return GL2(gl.add(a0b0, _mul_w(a1b1)), gl.add(a0b1, a1b0))
+    if x.c0.lo.is_cuda or y.c0.lo.is_cuda:
+        return _launch("gl2_mul", *x.c0, *x.c1, *y.c0, *y.c1)
+    return mul_limbs(x, y)
+
+
+def mul_limbs(x: GL2, y: GL2) -> GL2:
+    """x * y as chains of limb ops (add_limbs)."""
+    a0b0 = gl.mul_limbs(x.c0, y.c0)
+    a1b1 = gl.mul_limbs(x.c1, y.c1)
+    a0b1 = gl.mul_limbs(x.c0, y.c1)
+    a1b0 = gl.mul_limbs(x.c1, y.c0)
+    return GL2(gl.add_limbs(a0b0, _mul_w_limbs(a1b1)),
+               gl.add_limbs(a0b1, a1b0))
 
 
 def square(x: GL2) -> GL2:

@@ -13,6 +13,12 @@ compare, as in plonky25_tpu/fields/goldilocks.py, whose public API this
 module mirrors.  JAX's limb dtype `U32` (jnp.uint32) has no counterpart:
 the limbs are int64 tensors, for the reason above; `MASK32` is its mask.
 
+On CUDA tensors `add`, `sub` and `mul` launch one hand-written kernel each
+(csrc/goldilocks.cu through ops/goldilocks.py, operands read through their
+strides and broadcast as they are); the limb chains below are the CPU
+implementation, which the kernels are held bit-equal to.  Every other op
+here (`neg`, `square`, `inv`, `pow_*`, ...) is built from those three.
+
 Identities used by the reduction (p = 2^64 - 2^32 + 1):
     2^64 ≡ 2^32 - 1 =: EPSILON  (mod p)
     2^96 ≡ -1                   (mod p)
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from ..constants import GOLDILOCKS_P as P
+from ..ops import goldilocks as kernels
 
 M32 = 0xFFFFFFFF
 M16 = 0xFFFF
@@ -130,7 +137,19 @@ def _canonical(lo, hi) -> GL:
     return GL(torch.where(ge, lo - 1, lo), torch.where(ge, 0, hi))
 
 
+def _launch(op: str, a: GL, b: GL) -> GL:
+    return GL(*kernels.launch(op, (a.lo, a.hi, b.lo, b.hi)))
+
+
 def add(a: GL, b: GL) -> GL:
+    if a.lo.is_cuda or b.lo.is_cuda:
+        return _launch("gl_add", a, b)
+    return add_limbs(a, b)
+
+
+def add_limbs(a: GL, b: GL) -> GL:
+    """a + b as a chain of limb ops: `add` on the CPU, and the plain
+    version the kernel is held to."""
     lo = a.lo + b.lo
     hi = a.hi + b.hi + (lo >> 32)
     lo = lo & M32
@@ -142,6 +161,13 @@ def add(a: GL, b: GL) -> GL:
 
 
 def sub(a: GL, b: GL) -> GL:
+    if a.lo.is_cuda or b.lo.is_cuda:
+        return _launch("gl_sub", a, b)
+    return sub_limbs(a, b)
+
+
+def sub_limbs(a: GL, b: GL) -> GL:
+    """a - b as a chain of limb ops (add_limbs)."""
     lo = a.lo - b.lo
     hi = a.hi - b.hi + (lo >> 32)
     lo = lo & M32
@@ -193,6 +219,13 @@ def _reduce128(x0, x1, x2, x3) -> GL:
 
 
 def mul(a: GL, b: GL) -> GL:
+    if a.lo.is_cuda or b.lo.is_cuda:
+        return _launch("gl_mul", a, b)
+    return mul_limbs(a, b)
+
+
+def mul_limbs(a: GL, b: GL) -> GL:
+    """a * b as a chain of limb ops (add_limbs)."""
     return _reduce128(*_mul_words(a, b))
 
 

@@ -38,11 +38,12 @@ went through counts in `poseidon2.<kernel>.launches`, <kernel> `w12`
 (state-major) or `soa` (lane-major): a call of the plain version permutes
 states and launches nothing.  Counts and observers run in Python, which a
 CUDA graph does not replay: a graph's owner captures under
-`recording_launches`, which keeps each launch's kernel and states, and
-calls `replay_launches` at each replay (utils/graphs.py), so a launch is
-counted where the kernel runs.
-`load_kernels` builds both libraries before a capture, during which
-ops/build.py refuses to build.
+utils/profiling.py's `recording_launches`, in which each launch records
+its counts and its observers' replay, and calls `replay_launches` at each
+replay (utils/graphs.py), so a launch is counted where the kernel runs.
+`load_kernels` builds both libraries, and the field kernels'
+(ops/goldilocks.py), before a capture, during which ops/build.py refuses
+to build.
 `poseidon2_permute_auto` is the JAX package's name for the same
 dispatch as `poseidon2_permute`.  JAX's `poseidon2_permute_jit` (a jitted
 alias) and `PALLAS_DISABLED` (the P25_DISABLE_PALLAS environment switch,
@@ -56,7 +57,6 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-from dataclasses import dataclass, field
 
 import torch
 
@@ -73,6 +73,7 @@ from ..fields import gl
 from ..fields.goldilocks import GL
 from ..utils import profiling
 from . import build
+from . import goldilocks as field_kernels
 
 KERNEL_SOURCE = "plonky25_torch/csrc/poseidon2.cu"
 REPLACES = "plonky25_tpu/ops/pallas/poseidon2_pallas.py:103"
@@ -141,7 +142,6 @@ def poseidon2_permute_plain(state: GL) -> GL:
 # ------------------------------------------------------------ observers
 
 _observers = []     # callbacks of the open observe_states blocks
-_record = None      # the LaunchRecord of an open recording_launches block
 _OFF = contextlib.nullcontext()
 _COUNTERS = {k: (f"poseidon2.{k}.states", f"poseidon2.{k}.launches")
              for k in ("w12", "soa")}
@@ -172,9 +172,10 @@ def _entered(n: int):
 def _observed(state: GL, kernel: str):
     """What one call of `kernel` on `state` (12 lanes a state, on either
     axis) runs inside: its states counted where tracing is on, and the
-    observers' contexts; nothing inside recording_launches, where _launch
-    records the call."""
-    if _record is not None or (not _observers and not profiling.tracing()):
+    observers' contexts; nothing inside profiling.recording_launches,
+    where _launched records the launch."""
+    if profiling.launch_record_open() or (not _observers
+                                        and not profiling.tracing()):
         return _OFF
     n = state.lo.numel() // WIDTH
     profiling.count(_COUNTERS[kernel][0], n)
@@ -182,12 +183,24 @@ def _observed(state: GL, kernel: str):
 
 
 def _launched(kernel: str, n: int) -> None:
-    """One launch of `kernel` on n states went through: recorded inside
-    recording_launches, else counted where tracing is on."""
-    if _record is not None:
-        _record.calls.append((kernel, n))
-    else:
-        profiling.count(_COUNTERS[kernel][1])
+    """One launch of `kernel` on n states went through: its launch
+    counted where tracing is on (its states were, in _observed), or
+    inside profiling.recording_launches both recorded, the observers'
+    contexts entered at each replay."""
+    states, launches = _COUNTERS[kernel]
+    if not profiling.launch_record_open():
+        profiling.count(launches)
+        return
+    profiling.launched({states: n, launches: 1},
+                       functools.partial(_replayed, n))
+
+
+def _replayed(n: int) -> None:
+    """A replay of a recorded launch on n states: the open observers'
+    contexts, entered and left."""
+    if _observers:
+        with _entered(n):
+            pass
 
 
 # ------------------------------------------------------------ the kernel
@@ -385,51 +398,10 @@ def _poseidon2_permute_soa_variant(planes: GL, split: bool) -> GL:
 
 def load_kernels() -> None:
     """Build (one nvcc for each source, started together) and load both
-    kernel libraries, so that no later call builds one: a captured CUDA
-    graph must not (ops/build.py refuses to build during a capture)."""
-    build.build_many(["poseidon2", "poseidon2_soa"])
+    kernel libraries and the field kernels' (ops/goldilocks.py), so that
+    no later call builds one: a captured CUDA graph must not (ops/build.py
+    refuses to build during a capture)."""
+    build.build_many(["poseidon2", "poseidon2_soa", "goldilocks"])
     kernel_library()
     soa_kernel_library()
-
-
-# ------------------------------------------------------------ captured launches
-
-
-@dataclass
-class LaunchRecord:
-    """The launches of a block run by `recording_launches`: (kernel,
-    states) of each, in order, and the counters they add up to."""
-
-    calls: list = field(default_factory=list)
-    counts: dict = field(default_factory=dict)
-
-
-@contextlib.contextmanager
-def recording_launches():
-    """Record the block's launches without counting or observing them.
-    For a block that captures a CUDA graph: the Python around a launch
-    runs at capture and not at replay, so the graph's owner passes the
-    yielded LaunchRecord to `replay_launches` once per replay, which
-    counts the launches where they run."""
-    global _record
-    saved, _record = _record, LaunchRecord()
-    rec = _record
-    try:
-        yield rec
-    finally:
-        _record = saved
-        for kernel, n in rec.calls:
-            for name, d in zip(_COUNTERS[kernel], (n, 1)):
-                rec.counts[name] = rec.counts.get(name, 0) + d
-
-
-def replay_launches(rec: LaunchRecord) -> None:
-    """Count one replay of a graph captured under `recording_launches`
-    where tracing is on (its counters at once), and enter every open
-    observer once for each recorded launch."""
-    if not _observers and not profiling.tracing():
-        return
-    profiling.add(rec.counts)
-    for _, n in rec.calls if _observers else ():
-        with _entered(n):
-            pass
+    field_kernels.load_kernel()

@@ -34,16 +34,17 @@ torch.cuda.graph_pool_handle()): a later capture reuses the blocks that an
 earlier one freed, never those of its outputs, which the program holds.
 
 A failed capture or replay raises; nothing runs the function eagerly in
-its place.  The Poseidon2 wrappers count launches in Python, which runs at
-capture and not at replay: the program records what they counted at
-capture (ops/poseidon2.py::recording_launches) and counts it again at
-every replay where tracing is on.  Each run is the span `replay.<name>`
-(utils/profiling.py): the graph's replay and its count on the card, the
-function's call on the CPU; a capture is not in it.  A tensor that a
-module cache first makes during the capture would live in the graph's
-memory pool, which replays overwrite; the program checks that the caches
-did not grow during the capture: the module caches, and the tables of the
-program's owner (`tables`, the prover's per-instance tables).
+its place.  The Poseidon2 wrappers and the field kernels' launcher count
+launches in Python, which runs at capture and not at replay: the program
+records what they counted at capture (utils/profiling.py's
+recording_launches) and counts it again at every replay where tracing is
+on.  Each run is the span `replay.<name>` (utils/profiling.py): the
+graph's replay and its count on the card, the function's call on the CPU;
+a capture is not in it.  A tensor that a module cache first makes during
+the capture would live in the graph's memory pool, which replays
+overwrite; the program checks that the caches did not grow during the
+capture: the module caches, and the tables of the program's owner
+(`tables`, the prover's per-instance tables).
 `stats` holds the warm-up, capture, instantiation and first-replay times
 and the bytes by which the capture grew the graph's memory pool.
 """
@@ -128,7 +129,7 @@ class StaticProgram:
     def _replay(self) -> None:
         with profiling.span(self.span):
             self._graph.replay()
-            poseidon2.replay_launches(self._launches)
+            profiling.replay_launches(self._launches)
 
     def __call__(self, *args):
         """Load `args`, run, and return clones of the outputs."""
@@ -156,7 +157,7 @@ class StaticProgram:
         # kept after the capture, so that its instantiation is timed apart
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
-        with poseidon2.recording_launches() as launches:
+        with profiling.recording_launches() as launches:
             with torch.cuda.graph(graph, pool=self.pool,
                                   capture_error_mode="thread_local"):
                 outputs = self.fn(*self.inputs)

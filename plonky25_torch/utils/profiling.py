@@ -50,9 +50,13 @@ The program's own spans and counters, on the profiler's clock:
     are kept, the newest; reading the table leaves it as it is.
 
 The Poseidon2 wrappers count `poseidon2.w12.*` and `poseidon2.soa.*`
-(`states`, and `launches` of the CUDA kernel) through
-ops/poseidon2.py::observe_states' path, replays of captured graphs
-included; `launch_counts`, `counted` and `StepClock` read them.
+(`states`, and `launches` of the CUDA kernel), and the field kernels
+(ops/goldilocks.py) `field.<op>.launches` and `field.<op>.elements`
+(<op> `gl_add`, ..., `gl2_mul_base`); `launch_counts`, `counted` and
+`StepClock` read the Poseidon2 counters, `field_launches` the field
+kernels'.  A kernel's launch reports itself through `launched`; inside a
+CUDA graph capture that goes to the `recording_launches` record, which
+`replay_launches` counts at each replay of the graph.
 """
 
 from __future__ import annotations
@@ -197,6 +201,65 @@ def add(counts: Dict[str, int]) -> None:
         with _table_lock:
             for name, n in counts.items():
                 _table.counts[name] = _table.counts.get(name, 0) + n
+
+
+# ------------------------------------------------------------ launch records
+
+@dataclass
+class LaunchRecord:
+    """The launches of a block run by `recording_launches`: the counters
+    they add up to, and the replay hook each left, in order."""
+
+    counts: Dict[str, int] = field(default_factory=dict)
+    hooks: list = field(default_factory=list)
+
+
+_launch_record: Optional[LaunchRecord] = None
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Record the block's kernel launches (`launched`) without counting
+    them.  For a block that captures a CUDA graph: the Python around a
+    launch runs at capture and not at replay, so the graph's owner passes
+    the yielded LaunchRecord to `replay_launches` once per replay, which
+    counts the launches where they run (utils/graphs.py)."""
+    global _launch_record
+    saved, _launch_record = _launch_record, LaunchRecord()
+    rec = _launch_record
+    try:
+        yield rec
+    finally:
+        _launch_record = saved
+
+
+def launch_record_open() -> bool:
+    """Whether a recording_launches block is open."""
+    return _launch_record is not None
+
+
+def launched(counts: Dict[str, int], replay=None) -> None:
+    """A hand-written kernel's launch went through (the Poseidon2
+    wrappers, the field kernels): `counts` go to the open launch record,
+    with `replay` (called by each replay of the record), else to the
+    table where tracing is on."""
+    rec = _launch_record
+    if rec is None:
+        add(counts)
+        return
+    for name, n in counts.items():
+        rec.counts[name] = rec.counts.get(name, 0) + n
+    if replay is not None:
+        rec.hooks.append(replay)
+
+
+def replay_launches(rec: LaunchRecord) -> None:
+    """Count one replay of a graph captured under `recording_launches`
+    (its counters at once, where tracing is on) and call the hooks its
+    launches left."""
+    add(rec.counts)
+    for hook in rec.hooks:
+        hook()
 
 
 def sync(x) -> None:
@@ -351,6 +414,14 @@ def launch_counts() -> Dict[str, int]:
     return {k + suf: counts.get(f"poseidon2.{tag}.{what}", 0)
             for k, tag in KERNEL_TAGS.items()
             for suf, what in (("", "launches"), (".states", "states"))}
+
+
+def field_launches() -> Dict[str, int]:
+    """{field op: launches} as the table holds them now (the ops that
+    launched)."""
+    pre, suf = "field.", ".launches"
+    return {k[len(pre):-len(suf)]: n for k, n in _table.counts.items()
+            if k.startswith(pre) and k.endswith(suf)}
 
 
 def counted(fn):

@@ -35,6 +35,10 @@ The accounting is a lower bound on time, so no share can exceed 1.0:
     elements as u32 limbs in int64 tensors, so one ATen op on a limb
     tensor is one u32 op in JAX's sense, and no instruction mix does it in
     fewer than one 32-bit instruction per element;
+  * a field kernel's launch inside fn (ops/goldilocks.py: add, sub and
+    mul of GL and GF(p^2) on the card) is charged the ATen ops its limb
+    chain dispatches on the CPU (gl.add_limbs, ...), counted on meta
+    tensors of the operands' shapes and strides;
   * a call of `poseidon2_permute` or `poseidon2_permute_soa` inside fn is
     charged by the permutation's work model (`P2_OPS["total"]` per state),
     whatever runs it: the limb ops of the plain version on the CPU are not
@@ -176,7 +180,9 @@ _FREE_OPS = _packets(
 
 class _Counter(TorchDispatchMode):
     """Counts the ATen ops dispatched under it; inside `permutation(n)`
-    the ops are not counted and the permutation's model is charged."""
+    the ops are not counted and the permutation's model is charged; at a
+    field kernel's launch (`field_launch`) its limb chain is counted on
+    meta tensors."""
 
     def __init__(self):
         super().__init__()
@@ -192,6 +198,15 @@ class _Counter(TorchDispatchMode):
             self.exact = False
         return out
 
+    def field_launch(self, op: str, tensors) -> None:
+        from ..ops import goldilocks as field_kernels
+
+        if self.opaque:
+            return
+        field_kernels.limb_chain(op)(*(torch.empty_strided(
+            t.shape, t.stride(), dtype=t.dtype, device="meta")
+            for t in tensors))
+
     @contextlib.contextmanager
     def permutation(self, n_states: int):
         self.ops += n_states * P2_OPS["total"]
@@ -204,16 +219,19 @@ class _Counter(TorchDispatchMode):
 
 def count_int_ops(fn, *args) -> OpCount:
     """Total u32 ops of one call `fn(*args)`: each integer elementwise ATen
-    op at one op per output element, each Poseidon2 permutation at the
+    op at one op per output element, each field kernel's launch at its
+    limb chain's, each Poseidon2 permutation at the
     model's `P2_OPS["total"]` per state (see the module docstring); an op
     in neither the counted nor the free set is charged one op per output
     element and makes the count inexact, as in JAX.  A table that an
     earlier call built and cached (the NTT's twiddles) is not rebuilt, so
     warm fn up to count a steady call."""
+    from ..ops import goldilocks as field_kernels
     from ..ops import poseidon2 as p2
 
     counter = _Counter()
-    with p2.observe_states(counter.permutation), counter:
+    with p2.observe_states(counter.permutation), \
+            field_kernels.observe_launches(counter.field_launch), counter:
         fn(*args)
     return OpCount(counter.ops, counter.exact)
 

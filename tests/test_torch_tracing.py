@@ -62,8 +62,9 @@ def test_off_records_nothing_and_enters_no_annotation(monkeypatch):
     with profiling.span("off"):
         profiling.count("off.count", 5)
         poseidon2.poseidon2_permute(gl.zeros((2, 12), "cpu"))
-    rec = poseidon2.LaunchRecord([("w12", 7)])
-    poseidon2.replay_launches(rec)
+    with profiling.recording_launches() as rec:
+        poseidon2._launched("w12", 7)
+    profiling.replay_launches(rec)
     assert profiling.table() is before
     assert list(before.spans) == spans and before.counts == counts
 
@@ -204,12 +205,12 @@ def test_cpu_proof_counts_lane_major_states():
 
 def test_replay_counts_each_recorded_call_as_a_launch():
     # _launched is what _launch calls once a launch went through
-    with poseidon2.recording_launches() as rec:
+    with profiling.recording_launches() as rec:
         poseidon2._launched("w12", 7)
         poseidon2._launched("soa", 4)
         poseidon2._launched("w12", 5)
     with profiling.recording():
-        poseidon2.replay_launches(rec)
+        profiling.replay_launches(rec)
         got = profiling.launch_counts()
     assert got == {AOS: 2, AOS + ".states": 12, SOA: 1, SOA + ".states": 4}
 
@@ -222,15 +223,18 @@ def test_recording_launches_neither_counts_nor_observes():
         return contextlib.nullcontext()
 
     with profiling.recording() as t, poseidon2.observe_states(cb):
-        with poseidon2.recording_launches() as rec:
+        with profiling.recording_launches() as rec:
             # the plain versions launch nothing, so nothing is recorded
             poseidon2.poseidon2_permute(gl.zeros((3, 12), "cpu"))
             poseidon2.poseidon2_permute_soa(gl.zeros((12, 5), "cpu"))
             poseidon2._launched("w12", 3)
             poseidon2._launched("soa", 5)
         assert t.counts == {} and seen == []
-        poseidon2.replay_launches(rec)
-    assert rec.calls == [("w12", 3), ("soa", 5)]
+        profiling.replay_launches(rec)
+    assert rec.counts == {"poseidon2.w12.launches": 1,
+                          "poseidon2.w12.states": 3,
+                          "poseidon2.soa.launches": 1,
+                          "poseidon2.soa.states": 5}
     assert seen == [3, 5]
 
 
